@@ -9,12 +9,15 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` (into ``build/repro_torch/``), holds every kernel against its
 plain PyTorch version on the card and times both, drives
 ``repro_torch.serve.codec_engine`` at the paper's image sizes and at a
-64 x 512 x 512 batch, checks the PSNR the JAX reference reports
-(RESULTS.md: lena 512x512 at quality 50, 37.900 dB exact and 35.784 dB
-cordic), runs the CPU column of the paper's CPU-versus-GPU comparison,
-counts the kernel launches of the main path, and profiles where the time
-of the main path goes.  Every phase prints JSON lines; any failed check
-or error exits non-zero.  The last line is
+64 x 512 x 512 batch along two paths -- pixels -> levels -> pixels
+(``roundtrip_batch``, ``compress_batch``, ``decompress_batch``) and the
+byte path (``encode_batch`` -> ``DCTZ`` streams -> ``decode_batch``) --
+checks the PSNR the JAX reference reports (RESULTS.md: lena 512x512 at
+quality 50, 37.900 dB exact and 35.784 dB cordic), checks that the card's
+streams are byte-identical to the port's CPU path, runs the CPU column of
+the paper's CPU-versus-GPU comparison, counts the kernel launches of each
+path, and profiles where the time of each path goes.  Every phase prints
+JSON lines; any failed check or error exits non-zero.  The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -24,11 +27,15 @@ port's sources are not beside it.
 
 from __future__ import annotations
 
+import cProfile
 import json
 import pathlib
+import pstats
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -36,6 +43,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # and fp32 outside the tensor cores (the kernels use no TF32).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# The byte path's kernels do int32 work on the CUDA cores: 64 int32 lanes
+# per SM (half the fp32 lanes; NVIDIA's Hopper white paper), 132 SMs,
+# 1.98 GHz boost clock.
+PEAK_INT32_PER_S = 64 * 132 * 1.98e9
 
 QUALITY = 50
 # RESULTS.md, Table 3 (lena 512x512, quality 50), from the JAX reference.
@@ -123,11 +134,34 @@ def work_per_px(kernel: str, variant: str, config):
     return 8, cordic_ops_per_px(config)        # cordic_loeffler
 
 
-def bound(nbytes: int, ops: int):
+# Least work of the byte path's integer functions, counted from this run's
+# streams (bytes, int32 operations):
+# - symbolize, per block: reads the 8-byte DC difference and 63 int32
+#   levels and writes 3 x 64 int16 slots and an int32 count (648 B); one
+#   zero test per level and about 10 operations per symbol it emits;
+# - pack_bits, per field: reads its 4-byte width and, if it is kept
+#   (width > 0), its 4-byte code and 8-byte start, and writes the payload
+#   once; about 6 operations per kept field (mask, shift, split, swap,
+#   OR);
+# - unpack_bits, per bit offset: reads the payload once and writes three
+#   int32 words (12 B); about 40 operations per offset (a window, one
+#   table lookup and its classification per table, seven doubling
+#   levels).
+def byte_work(kernel: str, st: dict):
+    if kernel == "symbolize":
+        return 648 * st["blocks"], 63 * st["blocks"] + 10 * st["symbols"]
+    if kernel == "pack_bits":
+        return (4 * st["fields"] + 12 * st["kept"] + st["payload_bytes"],
+                6 * st["kept"])
+    n_pos = 8 * st["payload_bytes"] + 1
+    return 12 * n_pos + st["payload_bytes"], 40 * n_pos
+
+
+def bound(nbytes: int, ops: int, peak_ops: float = PEAK_FP32_PER_S):
     """Least time in ms for the work, and whether bytes or operations
     set it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -175,6 +209,12 @@ KERNELS = {
                "src/repro/kernels/dct8x8/kernel.py:70"),
     "cordic_loeffler": ("src/repro_torch/kernels/csrc/cordic_loeffler.cu",
                         "src/repro/kernels/cordic_loeffler/kernel.py:54"),
+    "symbolize": ("src/repro_torch/kernels/csrc/symbolize.cu",
+                  "src/repro/kernels/symbolize/kernel.py:204"),
+    "pack_bits": ("src/repro_torch/kernels/csrc/pack_bits.cu",
+                  "src/repro/kernels/pack_bits/kernel.py:111"),
+    "unpack_bits": ("src/repro_torch/kernels/csrc/unpack_bits.cu",
+                    "src/repro/kernels/unpack_bits/kernel.py:179"),
 }
 
 
@@ -268,6 +308,92 @@ def phase_kernels(torch, pixels, label):
     return out
 
 
+def real_streams(torch, eng, imgs, transform="exact"):
+    """The byte path's per-image streams of a (B, H, W) batch on the
+    card, as ``encode_batch`` codes them: (DC differences, AC view) and
+    the prepared stream with its "auto" tables."""
+    from repro_torch.core.entropy import container, huffman, scan
+    from repro_torch.kernels import symbolize as sy
+
+    q = eng.compress_batch(imgs, QUALITY, transform).groups[0].qcoeffs
+    out = []
+    for z in scan.zigzag_scan(q).reshape(q.shape[0], -1, 64):
+        dc_diff, ac = scan.dc_differential(z)
+        prep = sy.PreparedStream(dc_diff, ac)
+        tables = [container._choose_table(freq, tid, "auto", what)[1]
+                  for freq, tid, what in (
+                      (prep.dc_freq, huffman.STANDARD_DC_LUMA_ID, "DC"),
+                      (prep.ac_freq, huffman.STANDARD_AC_LUMA_ID, "AC"))]
+        out.append((dc_diff, ac, prep, tables))
+    return out
+
+
+def phase_byte_kernels(torch, np, eng, imgs, label):
+    """symbolize, pack_bits and unpack_bits on the real streams of
+    ``imgs`` (one stream per image): exact agreement with their plain
+    versions on the card, kernel ms, plain ms and bound ms, per stream
+    and summed over the streams."""
+    from repro_torch.kernels import pack_bits as pb
+    from repro_torch.kernels import symbolize as sy
+    from repro_torch.kernels import unpack_bits as ub
+
+    streams = real_streams(torch, eng, imgs)
+    n_streams = len(streams)
+    work = {"blocks": 0, "symbols": 0, "fields": 0, "kept": 0,
+            "payload_bytes": 0}
+    calls = {"symbolize": [], "pack_bits": [], "unpack_bits": []}
+    for dc_diff, ac, prep, (dt, at) in streams:
+        got = sy.ops._launch(dc_diff, ac)
+        want = sy.symbolize_ref(dc_diff, ac)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"symbolize {label} differs from its plain version")
+        fields = prep.fields(dt, at)
+        payload = pb.ops._launch(*fields)
+        check(torch.equal(payload, pb.pack_bits_ref(*fields)),
+              f"pack_bits {label} differs from its plain version")
+        (dp, ds), (ap, as_) = ub.table_params(dt), ub.table_params(at)
+        tabs = torch.from_numpy(np.concatenate([dp, ap, ds, as_])).to(
+            payload.device)
+        uargs = (payload, tabs[:96], tabs[96:])
+        got = ub.ops._launch(*uargs, ub.TILE_BITS)
+        check(torch.equal(got, ub.unpack_words_ref(*uargs)),
+              f"unpack_bits {label} differs from its plain version")
+        work["blocks"] += dc_diff.shape[0]
+        work["symbols"] += int(prep.dc_freq.sum() + prep.ac_freq.sum())
+        work["fields"] += fields[0].shape[0]
+        work["kept"] += int((fields[1] > 0).sum())
+        work["payload_bytes"] += payload.shape[0]
+        calls["symbolize"].append(((dc_diff, ac), sy.ops._launch,
+                                   sy.symbolize_ref))
+        calls["pack_bits"].append((fields, pb.ops._launch,
+                                   pb.pack_bits_ref))
+        calls["unpack_bits"].append(
+            (uargs, lambda *a: ub.ops._launch(*a, ub.TILE_BITS),
+             ub.unpack_words_ref))
+
+    fast, slow = (10, 3) if n_streams == 1 else (5, 2)
+    rows = []
+    for name, variant in (("symbolize", "encode"), ("pack_bits", "encode"),
+                          ("unpack_bits", "decode")):
+        def run(which, name=name):
+            for args, kernel, plain in calls[name]:
+                (kernel if which == "kernel" else plain)(*args)
+        nbytes, ops = byte_work(name, work)
+        b_ms, b_by = bound(nbytes, ops, PEAK_INT32_PER_S)
+        ms = time_ms(torch, lambda: run("kernel"), fast)
+        row = dict(name=f"{name}[{variant}] {label}", kernel=name,
+                   variant=variant, shape=label, route="cuda",
+                   source=KERNELS[name][0], replaces=KERNELS[name][1],
+                   max_abs_err=0, tolerance="exact", ms=ms,
+                   plain_ms=time_ms(torch, lambda: run("plain"), slow),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   bytes=nbytes, ops=ops, streams=n_streams,
+                   ms_per_stream=ms / n_streams, **work)
+        emit(phase="kernel", **row)
+        rows.append(row)
+    return rows
+
+
 def reset_launches(modules):
     for m in modules:
         for k in m.launches:
@@ -354,6 +480,100 @@ def phase_main_path(torch, np, eng, singles, batch, modules):
     return gpu_psnr
 
 
+def reseal(data: bytes) -> bytes:
+    """A stream with its CRC recomputed, so a corrupted body reaches the
+    entropy decoder."""
+    crc = zlib.crc32(data[4:24] + data[28:]) & 0xFFFFFFFF
+    return data[:24] + struct.pack("<I", crc) + data[28:]
+
+
+def phase_byte_path(torch, np, eng, singles, batch):
+    """encode_batch -> DCTZ -> decode_batch at every paper size and on
+    the batch, exact and cordic: bytes identical to the port's CPU path,
+    decoded images identical to decompress_batch(compress_batch(x)),
+    PSNR from the bytes, the golden fixtures and malformed streams."""
+    from repro_torch.core import metrics
+    from repro_torch.core.entropy import BitstreamError, container
+
+    dev = torch.device("cuda")
+    warm = eng.encode_batch(singles[-1][2][None], QUALITY)   # first calls
+    eng.decode_batch(warm)
+    for kind, (h, w), img in singles + [("batch", batch.shape[1:], batch)]:
+        imgs = img if kind == "batch" else img[None]
+        n = imgs.shape[0]
+        for transform in ("exact", "cordic"):
+            policies = (("auto", "embedded", "shared") if (h, w) == (512, 512)
+                        and kind != "batch" else ("auto",))
+            for tables in policies:
+                enc_ms, blobs = wall_ms(torch, lambda: eng.encode_batch(
+                    imgs, QUALITY, transform, tables=tables))
+                cpu = eng.encode_batch(imgs, QUALITY, transform,
+                                       tables=tables, device="cpu")
+                check(blobs == cpu, f"{kind} {h}x{w} {transform} {tables}: "
+                      "card bytes differ from the CPU path's")
+                row = dict(phase="bytes", image=kind, size=[n, h, w],
+                           transform=transform, tables=tables,
+                           bytes_per_image=[len(b) for b in blobs][:4],
+                           bytes_total=sum(len(b) for b in blobs),
+                           bpp=8 * sum(len(b) for b in blobs) / (n * h * w),
+                           encode_ms=enc_ms, identical_to_cpu=True)
+                if tables == "auto":
+                    dec_ms, rec = wall_ms(torch, lambda: eng.decode_batch(
+                        blobs))
+                    want = eng.decompress_batch(eng.compress_batch(
+                        imgs, QUALITY, transform))
+                    check(all(torch.equal(r, x) for r, x in zip(rec, want)),
+                          f"{kind} {h}x{w} {transform}: decode_batch differs"
+                          " from decompress_batch(compress_batch(x))")
+                    psnr = metrics.psnr(torch.from_numpy(imgs).to(dev),
+                                        torch.stack(rec)).cpu().numpy()
+                    row.update(decode_ms=dec_ms, lossless=True,
+                               psnr_db=float(psnr.mean()),
+                               images_per_s_encode=n / enc_ms * 1e3,
+                               images_per_s_decode=n / dec_ms * 1e3)
+                    if (kind, h, w) == ("lena", 512, 512):
+                        want_db = REFERENCE_PSNR[transform]
+                        check(abs(psnr[0] - want_db) <= PSNR_BOUND[transform],
+                              f"lena 512x512 {transform} from bytes: "
+                              f"{psnr[0]} dB, reference {want_db} dB")
+                        row.update(reference_db=want_db)
+                emit(**row)
+
+    for path in sorted((ROOT / "tests" / "data").glob("*.dctz")):
+        data = path.read_bytes()
+        q, hdr = container.decode_qcoeffs(data)
+        want, _ = container.decode_qcoeffs(data, device="cpu")
+        check(torch.equal(q.cpu(), want), f"golden {path.name}: card levels "
+              "differ from the CPU path's")
+        emit(phase="bytes", golden=path.name, levels_identical=True,
+             version=hdr["version"])
+
+    blob = eng.encode_batch(next(img for kind, s, img in singles if s ==
+                                 (512, 512))[None], QUALITY)[0]
+    bad = [blob[:-5]]
+    for pos in range(len(blob) - 1, 28, -7):      # a flip the CPU rejects
+        flipped = bytearray(blob)
+        flipped[pos] ^= 0x24
+        flipped = reseal(bytes(flipped))
+        try:
+            container.decode_zigzag_host(flipped, device="cpu")
+        except BitstreamError:
+            bad.append(flipped)
+            break
+    check(len(bad) == 2, "no resealed bit flip was rejected")
+    for data in bad:
+        msgs = []
+        for device in ("cpu", "cuda"):
+            try:
+                container.decode_zigzag_host(data, device=device)
+                msgs.append(None)
+            except BitstreamError as e:
+                msgs.append(str(e))
+        check(msgs[0] is not None and msgs[0] == msgs[1],
+              f"malformed stream: card {msgs[1]!r}, CPU {msgs[0]!r}")
+        emit(phase="bytes", malformed=msgs[1])
+
+
 def phase_cpu_column(torch, eng, singles, gpu_psnr):
     """The paper's CPU column: the port's own path on the host CPU,
     asked for explicitly, beside the GPU's numbers."""
@@ -375,50 +595,82 @@ def phase_cpu_column(torch, eng, singles, gpu_psnr):
                  max_abs_diff_vs_gpu=diff)
 
 
-def phase_profile(torch, eng, batch, singles):
-    """Where the main path's time goes: torch.profiler over one
-    roundtrip_batch call, device busy time against the host window."""
+def device_profile(torch, fn):
+    """torch.profiler over one call of ``fn`` ending in a synchronise:
+    the window, device busy time, and the largest device and host
+    (operator) items."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    device, host = [], {}
+    for e in prof.events():
+        kind = getattr(e.device_type, "name", str(e.device_type))
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0][:72]
+        if kind == "CUDA":
+            device.append((e.time_range.start, e.time_range.end, name))
+        elif e.cpu_parent is None:
+            host[name] = host.get(name, 0.0) + e.time_range.elapsed_us()
+    busy = 0.0
+    last = -1.0
+    for start, end, _ in sorted(device):
+        busy += max(0.0, end - max(start, last))
+        last = max(last, end)
+    by_kernel = {}
+    for start, end, name in device:
+        by_kernel[name] = by_kernel.get(name, 0.0) + (end - start)
+    return dict(window_us=window_us, device_busy_us=busy,
+                device_idle_share=1 - busy / window_us,
+                device_top=sorted(by_kernel.items(),
+                                  key=lambda kv: -kv[1])[:8],
+                host_top=sorted(host.items(), key=lambda kv: -kv[1])[:8])
+
+
+def python_profile(fn, top=8):
+    """cProfile over one call: the host's largest Python functions by
+    their own time (the table choice, framing and chain resolution are
+    host work the operator profile does not name)."""
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [(f"{pathlib.Path(f).name}:{line}:{func}", tt * 1e3, ct * 1e3)
+            for (f, line, func), (_, _, tt, ct, _) in rows]
+
+
+def phase_profile(torch, eng, batch, singles):
+    """Where each path's time goes: one roundtrip_batch call, and one
+    encode_batch and one decode_batch call, at 3072x3072 and on the
+    batch."""
     big = next(img for kind, s, img in singles if s == (3072, 3072))
     for label, imgs in (("3072x3072", big[None]), ("64x512x512", batch)):
         for transform, mode in (("exact", "standard"),
                                 ("cordic", "standard")):
-            eng.roundtrip_batch(imgs, QUALITY, transform, mode=mode)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                eng.roundtrip_batch(imgs, QUALITY, transform, mode=mode)
-                torch.cuda.synchronize()
-                window_us = (time.perf_counter() - t0) * 1e6
-            device, host = [], {}
-            for e in prof.events():
-                kind = getattr(e.device_type, "name", str(e.device_type))
-                name = e.name.replace("(anonymous namespace)::", "")
-                name = name.split("(")[0][:72]
-                if kind == "CUDA":
-                    device.append((e.time_range.start, e.time_range.end,
-                                   name))
-                elif e.cpu_parent is None:
-                    host[name] = host.get(name, 0.0) + \
-                        e.time_range.elapsed_us()
-            check(bool(device), f"profile {label} {transform}: the profiler "
-                  "recorded no device time")
-            busy = 0.0
-            last = -1.0
-            for start, end, _ in sorted(device):
-                busy += max(0.0, end - max(start, last))
-                last = max(last, end)
-            by_kernel = {}
-            for start, end, name in device:
-                by_kernel[name] = by_kernel.get(name, 0.0) + (end - start)
-            emit(phase="profile", images=label, transform=transform,
-                 mode=mode, window_us=window_us,
-                 device_busy_us=busy, device_idle_share=1 - busy / window_us,
-                 device_top=sorted(by_kernel.items(),
-                                   key=lambda kv: -kv[1])[:8],
-                 host_top=sorted(host.items(), key=lambda kv: -kv[1])[:8])
+            row = device_profile(torch, lambda: eng.roundtrip_batch(
+                imgs, QUALITY, transform, mode=mode))
+            check(row["device_busy_us"] > 0, f"profile {label} {transform}:"
+                  " the profiler recorded no device time")
+            emit(phase="profile", images=label, call="roundtrip_batch",
+                 transform=transform, mode=mode, **row)
+        blobs = eng.encode_batch(imgs, QUALITY)
+        for call, fn in (
+                ("encode_batch", lambda: eng.encode_batch(imgs, QUALITY)),
+                ("decode_batch", lambda: eng.decode_batch(blobs))):
+            row = device_profile(torch, fn)
+            check(row["device_busy_us"] > 0, f"profile {label} {call}: "
+                  "the profiler recorded no device time")
+            emit(phase="profile", images=label, call=call,
+                 transform="exact", python_top_ms=python_profile(
+                     lambda: (fn(), torch.cuda.synchronize())), **row)
 
 
 def main() -> int:
@@ -434,6 +686,9 @@ def main() -> int:
     from repro_torch.kernels import cordic_loeffler as cl
     from repro_torch.kernels import dct8x8 as d8
     from repro_torch.kernels import fused_codec as fc
+    from repro_torch.kernels import pack_bits as pb
+    from repro_torch.kernels import symbolize as sy
+    from repro_torch.kernels import unpack_bits as ub
     from repro_torch.serve import codec_engine as eng
 
     t_start = time.perf_counter()
@@ -446,15 +701,30 @@ def main() -> int:
                          "3072x3072")
     rows += phase_kernels(torch, torch.from_numpy(batch).to(dev).float(),
                           "64x512x512")
+    rows += phase_byte_kernels(torch, np, eng, big[None], "3072x3072")
+    rows += phase_byte_kernels(torch, np, eng, batch, "64x512x512")
 
-    modules = (fc, d8, cl)
-    reset_launches(modules)
-    gpu_psnr = phase_main_path(torch, np, eng, singles, batch, modules)
-    torch.cuda.synchronize()
-    launches = snapshot(modules)
-    emit(phase="launches", main_path=launches)
-    missing = [k for k, v in launches.items() if v == 0]
-    check(not missing, f"kernels never launched on the main path: {missing}")
+    # each path is driven with every count at 0 just before it and read
+    # just after; its own kernels must have been launched in that run
+    modules = (fc, d8, cl, sy, pb, ub)
+    launches = {}
+    for path, run, own in (
+            ("pixels", lambda: phase_main_path(torch, np, eng, singles,
+                                               batch, modules), (fc, d8, cl)),
+            ("bytes", lambda: phase_byte_path(torch, np, eng, singles,
+                                              batch), (sy, pb, ub))):
+        reset_launches(modules)
+        out = run()
+        torch.cuda.synchronize()
+        counts = snapshot(modules)
+        emit(phase="launches", path=path, counts=counts)
+        mine = snapshot(own)
+        missing = [k for k, v in mine.items() if v == 0]
+        check(not missing, f"kernels never launched on the {path} path: "
+              f"{missing}")
+        launches.update(mine)
+        if path == "pixels":
+            gpu_psnr = out
 
     phase_cpu_column(torch, eng, singles, gpu_psnr)
     phase_profile(torch, eng, batch, singles)

@@ -31,12 +31,66 @@ Transform = Literal["exact", "cordic", "loeffler"]
 
 @dataclasses.dataclass
 class CompressedImage:
-    """Quantised DCT representation of a single grayscale image."""
+    """Quantised DCT representation of a single grayscale image.
+
+    ``to_bytes``/``from_bytes`` round-trip through the entropy-coded
+    ``DCTZ`` container (:mod:`repro_torch.core.entropy`) losslessly, so
+    ``nbytes`` is the *measured* compressed size.
+    """
     qcoeffs: torch.Tensor         # (H/8, W/8, 8, 8) int32 quantised levels
     quality: int
     transform: str
     orig_shape: tuple             # (H, W) before padding
     cordic_config: cordic.CordicConfig | None = None
+    _nbytes_cache: int | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def to_bytes(self, *, tables: str = "auto") -> bytes:
+        """Serialise as one ``DCTZ`` stream, coded on the levels' device.
+
+        Args:
+            tables: Huffman table policy — "auto", "embedded" or
+                "shared" (see
+                :func:`repro_torch.core.entropy.encode_qcoeffs`).
+        """
+        from repro_torch.core import entropy
+        return entropy.encode_qcoeffs(self.qcoeffs, self.quality,
+                                      self.transform, self.orig_shape,
+                                      tables=tables)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, device=None) -> "CompressedImage":
+        """Parse a ``DCTZ`` stream back into a :class:`CompressedImage`.
+
+        The stream does not carry a CORDIC config (it only matters for
+        ``mode="matched"`` decodes); the paper's config is assumed.
+
+        Args:
+            data: one complete ``DCTZ`` stream.
+            device: where to decode and keep the levels; None means
+                "cuda" (raises without a GPU).
+
+        Raises:
+            repro_torch.core.entropy.BitstreamError: malformed stream.
+        """
+        from repro_torch.core import entropy
+        qcoeffs, hdr = entropy.decode_qcoeffs(data, device=device)
+        return cls(qcoeffs=qcoeffs, quality=hdr["quality"],
+                   transform=hdr["transform"],
+                   orig_shape=(hdr["height"], hdr["width"]),
+                   cordic_config=None, _nbytes_cache=len(data))
+
+    @property
+    def nbytes(self) -> int:
+        """Measured size in bytes of the entropy-coded stream (cached)."""
+        if self._nbytes_cache is None:
+            self._nbytes_cache = len(self.to_bytes())
+        return self._nbytes_cache
+
+    def compression_ratio(self) -> float:
+        """original bytes / *measured* entropy-coded bytes."""
+        h, w = self.orig_shape
+        return (h * w) / float(self.nbytes)
 
 
 def pad_to_block(img: torch.Tensor, block: int = 8) -> torch.Tensor:

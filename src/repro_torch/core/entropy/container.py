@@ -1,0 +1,470 @@
+"""The ``DCTZ`` container: a versioned bitstream around the entropy stage.
+
+The port of ``repro.core.entropy.container``; the streams are
+byte-identical to the reference's for the same levels and table policy.
+
+Layout (all integers little-endian; full spec in docs/bitstream.md)::
+
+    offset size field
+    0      4    magic  b"DCTZ"
+    4      1    version (1 or 2)
+    5      1    flags (reserved, must be 0)
+    6      1    quality (1..100, IJG scaling)
+    7      1    transform code (0 exact / 1 cordic / 2 loeffler)
+    8      4    height  u32 (original, pre-padding)
+    12     4    width   u32
+    16     1    dc_table_id (0 = table embedded in this stream)
+    17     1    ac_table_id (0 = table embedded in this stream)
+    18     2    reserved (must be 0)
+    20     4    payload_nbytes u32
+    24     4    crc32 over (header bytes 4..23 ‖ tables ‖ payload)
+    28     ...  DC table segment, then AC table segment (embedded only)
+    ...    ...  entropy-coded payload (payload_nbytes bytes)
+
+Version 1 embeds both canonical Huffman tables (table id 0); version 2
+is written when at least one alphabet uses a shared table id (>= 1,
+:data:`repro_torch.core.entropy.huffman.DEFAULT_TABLES`).
+
+Where the work runs: zig-zag, DC differential, symbolisation (the
+``symbolize`` kernel), codeword gather, bit offsets and packing (the
+``pack_bits`` kernel) on the levels' device; table choice, framing and
+CRC on the host.  Decode parses, checks the CRC and resolves the tables
+on the host, stages the payload's words on the device (the
+``unpack_bits`` kernel) and resolves the chain of blocks on the host.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+import torch
+
+from repro_torch import as_tensor, resolve_device
+from repro_torch.core.entropy import bitio, huffman, scan
+
+MAGIC = b"DCTZ"
+VERSION_EMBEDDED = 1        # both tables embedded (the v1 layout)
+VERSION_SHARED = 2          # at least one shared table id
+SUPPORTED_VERSIONS = (VERSION_EMBEDDED, VERSION_SHARED)
+VERSION = VERSION_SHARED    # newest version this module writes/reads
+TABLE_EMBEDDED = 0
+
+TABLE_MODES = ("auto", "embedded", "shared")
+
+_HEADER = struct.Struct("<4sBBBBIIBBHII")
+HEADER_NBYTES = _HEADER.size            # 28
+
+TRANSFORM_CODES = {"exact": 0, "cordic": 1, "loeffler": 2}
+_TRANSFORM_NAMES = {v: k for k, v in TRANSFORM_CODES.items()}
+
+
+class BitstreamError(ValueError):
+    """A ``DCTZ`` stream is malformed: bad magic/version/field values,
+    truncated data, CRC mismatch, or an invalid entropy payload."""
+
+
+def _grid_shape(height: int, width: int) -> tuple:
+    return (height + 7) // 8, (width + 7) // 8
+
+
+def _check_encode_args(quality: int, transform: str, tables: str) -> None:
+    if transform not in TRANSFORM_CODES:
+        raise ValueError(f"unknown transform {transform!r}; "
+                         f"expected one of {sorted(TRANSFORM_CODES)}")
+    if not 1 <= int(quality) <= 100:
+        raise ValueError(f"quality {quality} outside [1, 100]")
+    if tables not in TABLE_MODES:
+        raise ValueError(f"unknown tables mode {tables!r}; "
+                         f"expected one of {TABLE_MODES}")
+
+
+def _levels(x, what: str) -> torch.Tensor:
+    """Integer levels as an int32 tensor (NumPy input lands on the CPU).
+
+    Raises:
+        ValueError: a level does not fit int32.
+    """
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x))
+    if x.dtype != torch.int32:
+        if x.numel() and (int(x.min()) < -2 ** 31 or int(x.max()) >= 2 ** 31):
+            raise ValueError(f"{what} must fit int32")
+        x = x.to(torch.int32)
+    return x
+
+
+def encode_qcoeffs(qcoeffs, quality: int, transform: str,
+                   orig_shape: tuple, *, tables: str = "auto") -> bytes:
+    """Entropy-code one image's quantised levels into a ``DCTZ`` stream.
+
+    Args:
+        qcoeffs: (gh, gw, 8, 8) integer levels, raster block order, on
+            the device to code them on (a NumPy array codes on the CPU);
+            ``(gh, gw)`` must equal the block grid of ``orig_shape``
+            padded to 8.
+        quality: JPEG quality factor in [1, 100] (stored so the decoder
+            rebuilds the same quantisation table).
+        transform: encoder transform name (see :data:`TRANSFORM_CODES`).
+        orig_shape: (H, W) of the image before block padding.
+        tables: Huffman table policy — "auto" (per alphabet, shared
+            table when it beats embedded cost), "embedded" (always
+            per-stream tables: the version-1 layout), or "shared" (force
+            the shared ids; raises if the stream needs a symbol they
+            cannot code).
+
+    Returns:
+        The complete container as bytes.
+
+    Raises:
+        ValueError: shape/quality/transform/tables out of range, a
+            level too large for a 15-bit amplitude
+            (:class:`repro_torch.core.entropy.rle.RangeError`), or
+            ``tables="shared"`` with an uncoverable symbol stream.
+    """
+    h, w = int(orig_shape[0]), int(orig_shape[1])
+    _check_encode_args(quality, transform, tables)
+    gh, gw = _grid_shape(h, w)
+    qcoeffs = _levels(qcoeffs, "qcoeffs")
+    if tuple(qcoeffs.shape) != (gh, gw, 8, 8):
+        raise ValueError(f"qcoeffs shape {tuple(qcoeffs.shape)} does not "
+                         f"match the {gh}x{gw} block grid of a {h}x{w} "
+                         f"image")
+    return _frame_stream(scan.block_stream(qcoeffs), quality, transform,
+                         h, w, tables=tables)
+
+
+def encode_zigzag_host(z, quality: int, transform: str,
+                       orig_shape: tuple, *, tables: str = "auto") -> bytes:
+    """Entropy-code a (n_blocks, 64) zig-zag stream.
+
+    The sibling of :func:`encode_qcoeffs` for callers that ran the
+    zig-zag scan for a whole batch (the engine's ``to_bytes_list``).
+    The name is the reference's; the stream is coded on ``z``'s device.
+    Bytes are identical to :func:`encode_qcoeffs` on the same blocks.
+
+    Args:
+        z: (gh*gw, 64) integer zig-zag stream in raster block order.
+        quality: JPEG quality factor in [1, 100].
+        transform: encoder transform name (see :data:`TRANSFORM_CODES`).
+        orig_shape: (H, W) of the image before block padding.
+        tables: Huffman table policy, as in :func:`encode_qcoeffs`.
+
+    Returns:
+        The complete container as bytes.
+
+    Raises:
+        ValueError: shape/quality/transform/tables out of range, or a
+            level too large for a 15-bit amplitude.
+    """
+    h, w = int(orig_shape[0]), int(orig_shape[1])
+    _check_encode_args(quality, transform, tables)
+    gh, gw = _grid_shape(h, w)
+    z = _levels(z, "zig-zag stream")
+    if tuple(z.shape) != (gh * gw, 64):
+        raise ValueError(f"zig-zag stream shape {tuple(z.shape)} does not "
+                         f"match the {gh}x{gw} block grid of a {h}x{w} "
+                         f"image")
+    return _frame_stream(z, quality, transform, h, w, tables=tables)
+
+
+def _choose_table(freqs: np.ndarray, shared_id: int, tables: str,
+                  what: str) -> tuple:
+    """Pick (table_id, table) for one alphabet under the table policy.
+
+    "auto" compares total Huffman bits: the per-stream table costs its
+    coded bits plus 8x its embedded segment bytes; the shared table
+    costs its coded bits alone (or is unusable when the stream needs a
+    symbol it lacks).  Amplitude bits cancel.  The rule is
+    deterministic, so re-encoding a decoded stream reproduces it.
+    Forcing "shared" skips the per-stream table build entirely — the
+    streaming fast path; "auto" still builds it (memoised on the
+    histogram) because the comparison needs its coded bits.
+    """
+    if tables == "shared":
+        shared = huffman.DEFAULT_TABLES.get(shared_id)
+        if huffman.coded_bits(shared, freqs) is None:
+            raise ValueError(
+                f"{what} stream needs a symbol the shared table id "
+                f"{shared_id} cannot code; use tables='auto' or "
+                f"'embedded'")
+        return shared_id, shared
+    embedded = huffman.build_table_memo(freqs)
+    if tables == "embedded":
+        return TABLE_EMBEDDED, embedded
+    shared = huffman.DEFAULT_TABLES.get(shared_id)
+    shared_bits = huffman.coded_bits(shared, freqs)
+    embedded_cost = (huffman.coded_bits(embedded, freqs)
+                     + 8 * len(embedded.to_segment()))
+    if shared_bits is not None and shared_bits < embedded_cost:
+        return shared_id, shared
+    return TABLE_EMBEDDED, embedded
+
+
+def _frame_stream(z: torch.Tensor, quality: int, transform: str, h: int,
+                  w: int, *, tables: str = "auto") -> bytes:
+    """Both encoders' shared stages: DC differential and symbolisation
+    on ``z``'s device, table choice on the host from the histograms,
+    payload on the device, framing on the host."""
+    # imported here: the kernels import this package's modules
+    from repro_torch.kernels.symbolize import PreparedStream
+    prep = PreparedStream(*scan.dc_differential(z))
+    dc_id, dc_table = _choose_table(prep.dc_freq,
+                                    huffman.STANDARD_DC_LUMA_ID,
+                                    tables, "DC")
+    ac_id, ac_table = _choose_table(prep.ac_freq,
+                                    huffman.STANDARD_AC_LUMA_ID,
+                                    tables, "AC")
+    payload = prep.payload(dc_table, ac_table)
+
+    table_segs = b""
+    if dc_id == TABLE_EMBEDDED:
+        table_segs += dc_table.to_segment()
+    if ac_id == TABLE_EMBEDDED:
+        table_segs += ac_table.to_segment()
+    # fully-embedded streams keep the version-1 byte layout
+    version = (VERSION_EMBEDDED
+               if dc_id == ac_id == TABLE_EMBEDDED else VERSION_SHARED)
+    header = _HEADER.pack(MAGIC, version, 0, int(quality),
+                          TRANSFORM_CODES[transform], h, w,
+                          dc_id, ac_id, 0, len(payload), 0)
+    # CRC protects every header field after the magic plus tables and
+    # payload
+    crc = zlib.crc32(header[4:24] + table_segs + payload) & 0xFFFFFFFF
+    return header[:24] + struct.pack("<I", crc) + table_segs + payload
+
+
+def read_header(data: bytes) -> dict:
+    """Parse and validate the fixed 28-byte header.
+
+    Args:
+        data: at least the first 28 bytes of a stream.
+
+    Returns:
+        Dict with ``version``, ``quality``, ``transform``, ``height``,
+        ``width``, ``dc_table_id``, ``ac_table_id``, ``payload_nbytes``,
+        ``crc32``.
+
+    Raises:
+        BitstreamError: short data, bad magic, unsupported version,
+            or any field outside its valid range — including a table id
+            the version does not define (version 1 allows only
+            embedded; version 2 also allows registered shared ids).
+    """
+    if len(data) < HEADER_NBYTES:
+        raise BitstreamError(
+            f"truncated header: got {len(data)} bytes, need "
+            f"{HEADER_NBYTES}")
+    (magic, version, flags, quality, tcode, height, width,
+     dc_id, ac_id, reserved, payload_nbytes, crc) = _HEADER.unpack_from(
+        data)
+    if magic != MAGIC:
+        raise BitstreamError(f"not a DCTZ stream (magic {magic!r})")
+    if version not in SUPPORTED_VERSIONS:
+        raise BitstreamError(
+            f"unsupported DCTZ version {version}; this decoder reads "
+            f"versions {SUPPORTED_VERSIONS}")
+    if flags != 0 or reserved != 0:
+        raise BitstreamError("reserved header fields must be zero")
+    if tcode not in _TRANSFORM_NAMES:
+        raise BitstreamError(f"unknown transform code {tcode}")
+    if not 1 <= quality <= 100:
+        raise BitstreamError(f"quality {quality} outside [1, 100]")
+    if height == 0 or width == 0:
+        raise BitstreamError("zero image dimension")
+    for tid in (dc_id, ac_id):
+        if tid == TABLE_EMBEDDED:
+            continue
+        if version == VERSION_EMBEDDED:
+            raise BitstreamError(
+                f"unknown table ids ({dc_id}, {ac_id}); only embedded "
+                f"tables (id {TABLE_EMBEDDED}) are defined in version "
+                f"{VERSION_EMBEDDED}")
+        if not huffman.DEFAULT_TABLES.known(tid):
+            raise BitstreamError(
+                f"unknown table ids ({dc_id}, {ac_id}); version "
+                f"{VERSION_SHARED} defines embedded (id 0) and "
+                f"registered shared ids {huffman.DEFAULT_TABLES.ids()}")
+    return {"version": version, "quality": quality,
+            "transform": _TRANSFORM_NAMES[tcode],
+            "height": height, "width": width,
+            "dc_table_id": dc_id, "ac_table_id": ac_id,
+            "payload_nbytes": payload_nbytes, "crc32": crc}
+
+
+def _resolve_tables(data: bytes, hdr: dict) -> tuple:
+    """(dc_table, ac_table, payload_offset): embedded segments are
+    parsed from the stream (DC first), shared ids resolve through the
+    default registry (``read_header`` already vetted the ids)."""
+    off = HEADER_NBYTES
+    try:
+        if hdr["dc_table_id"] == TABLE_EMBEDDED:
+            dc_table, off = huffman.CanonicalTable.from_segment(data, off)
+        else:
+            dc_table = huffman.DEFAULT_TABLES.get(hdr["dc_table_id"])
+        if hdr["ac_table_id"] == TABLE_EMBEDDED:
+            ac_table, off = huffman.CanonicalTable.from_segment(data, off)
+        else:
+            ac_table = huffman.DEFAULT_TABLES.get(hdr["ac_table_id"])
+    except huffman.InvalidTable as e:
+        raise BitstreamError(f"bad embedded Huffman table: {e}") from e
+    return dc_table, ac_table, off
+
+
+def verify_crc(data: bytes) -> bool:
+    """Check a stream's CRC without entropy-decoding the payload.
+
+    Parses the header and table segments only (to locate the payload
+    extent), then recomputes the CRC the way the writer does.  Used by
+    ``dctz_cli info`` to report integrity cheaply.
+
+    Returns:
+        True iff the framing lengths agree and the CRC matches.
+
+    Raises:
+        BitstreamError: the header itself is invalid (there is no CRC
+            to check against).
+    """
+    hdr = read_header(data)
+    try:
+        _, _, off = _resolve_tables(data, hdr)
+    except BitstreamError:
+        return False
+    end = off + hdr["payload_nbytes"]
+    if len(data) != end:
+        return False
+    crc = zlib.crc32(data[4:24] + data[HEADER_NBYTES:end]) & 0xFFFFFFFF
+    return crc == hdr["crc32"]
+
+
+def decode_zigzag_host(data: bytes, *, device=None) -> tuple:
+    """Parse and entropy-decode a stream to its zig-zag form.
+
+    Framing validation, CRC and table resolution run on the host; the
+    payload's words are staged on ``device`` (the ``unpack_bits``
+    kernel) and the chain of blocks and the DC integration are resolved
+    on the host, as in the reference.
+
+    Args:
+        data: one complete ``DCTZ`` stream (version 1 or 2).
+        device: where the payload is staged; None means "cuda" (raises
+            without a GPU).
+
+    Returns:
+        ``(z, header)``: the (gh*gw, 64) int32 NumPy zig-zag stream in
+        raster block order and the parsed header dict.
+
+    Raises:
+        BitstreamError: any malformation — truncation (header, tables or
+            payload), trailing bytes, CRC mismatch, invalid table
+            segments or ids, or an undecodable entropy payload.
+    """
+    # imported here: the kernels import this package's modules
+    from repro_torch.kernels.unpack_bits import unpack_bits
+    dev = resolve_device(device)
+    hdr = read_header(data)
+    dc_table, ac_table, off = _resolve_tables(data, hdr)
+    end = off + hdr["payload_nbytes"]
+    if len(data) < end:
+        raise BitstreamError(
+            f"truncated payload: stream has {len(data) - off} of "
+            f"{hdr['payload_nbytes']} declared bytes")
+    if len(data) > end:
+        raise BitstreamError(f"{len(data) - end} trailing bytes after "
+                             f"the declared payload")
+    crc = zlib.crc32(data[4:24] + data[HEADER_NBYTES:end]) & 0xFFFFFFFF
+    if crc != hdr["crc32"]:
+        raise BitstreamError(
+            f"CRC mismatch: header says {hdr['crc32']:#010x}, stream "
+            f"hashes to {crc:#010x} (corrupted stream)")
+
+    gh, gw = _grid_shape(hdr["height"], hdr["width"])
+    # every block costs at least 2 payload bits (DC code + EOB), so a
+    # shape whose block count exceeds 4 bytes^-1 * payload is invalid —
+    # this bounds allocation before trusting the header's dimensions
+    if gh * gw > 4 * hdr["payload_nbytes"]:
+        raise BitstreamError(
+            f"declared {hdr['height']}x{hdr['width']} image needs "
+            f"{gh * gw} blocks but the {hdr['payload_nbytes']}-byte "
+            f"payload cannot hold them (corrupted shape)")
+    try:
+        dc_diff, ac = unpack_bits(data[off:end], gh * gw, dc_table,
+                                  ac_table, device=dev)
+    except (bitio.TruncatedStream, ValueError) as e:
+        raise BitstreamError(f"bad entropy payload: {e}") from e
+
+    z = np.empty((gh * gw, 64), dtype=np.int32)
+    z[:, 0] = np.cumsum(dc_diff, dtype=np.int64)
+    z[:, 1:] = ac
+    return z, hdr
+
+
+def decode_qcoeffs(data: bytes, *, device=None) -> tuple:
+    """Full inverse of :func:`encode_qcoeffs`.
+
+    Args:
+        data: one complete ``DCTZ`` stream.
+        device: where to decode; None means "cuda" (raises without a
+            GPU).
+
+    Returns:
+        ``(qcoeffs, header)``: the (gh, gw, 8, 8) int32 levels on
+        ``device`` and the parsed header dict.
+
+    Raises:
+        BitstreamError: see :func:`decode_zigzag_host`.
+    """
+    dev = resolve_device(device)
+    z, hdr = decode_zigzag_host(data, device=dev)
+    gh, gw = _grid_shape(hdr["height"], hdr["width"])
+    return scan.unblock_stream(as_tensor(z, dev), gh, gw), hdr
+
+
+def encode_image(img, quality: int = 50, transform: str = "exact",
+                 cordic_config=None, *, tables: str = "auto",
+                 device=None) -> bytes:
+    """Compress a (H, W) grayscale image to a complete ``DCTZ`` stream.
+
+    Args:
+        img: (H, W) uint8/float grayscale image.
+        quality: JPEG quality factor in [1, 100].
+        transform: encoder transform ("exact"/"cordic"/"loeffler").
+        cordic_config: CORDIC config for ``transform == "cordic"``
+            (None = the paper's config).
+        tables: Huffman table policy (see :func:`encode_qcoeffs`).
+        device: where to run; None means "cuda" (raises without a GPU).
+
+    Returns:
+        The container bytes; ``len()`` of it is the measured size.
+    """
+    from repro_torch.core import codec, cordic
+    c = codec.compress(img, quality, transform,
+                       cordic_config or cordic.PAPER_CONFIG, device=device)
+    return c.to_bytes(tables=tables)
+
+
+def decode_image(data: bytes, mode: str = "standard", *, device=None):
+    """Reconstruct the (H, W) uint8 image from a ``DCTZ`` stream.
+
+    The entropy stage is lossless over the quantised levels, so the
+    result is bit-exact with decoding the in-memory
+    :class:`repro_torch.core.codec.CompressedImage` the encoder started
+    from.
+
+    Args:
+        data: one complete ``DCTZ`` stream.
+        mode: "standard" (exact IDCT) or "matched" (the stored
+            transform, with the paper's CORDIC config).
+        device: where to decode; None means "cuda" (raises without a
+            GPU).
+
+    Returns:
+        (H, W) uint8 tensor on ``device``, cropped to the stored shape.
+
+    Raises:
+        BitstreamError: see :func:`decode_qcoeffs`.
+    """
+    from repro_torch.core import codec
+    return codec.decompress(codec.CompressedImage.from_bytes(
+        data, device=device), mode=mode)

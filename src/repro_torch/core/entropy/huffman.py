@@ -1,0 +1,343 @@
+"""Canonical, length-limited Huffman codes (JPEG-table shaped).
+
+A copy of ``repro.core.entropy.huffman``: tables, segments and the
+shared registry must be identical for the streams to be.
+
+A table is fully described by ``counts`` (how many codes have each
+length 1..16) and ``symbols`` (all coded symbols in canonical order) —
+the same (BITS, HUFFVAL) shape JPEG uses, which is what the ``DCTZ``
+container embeds.  Codes are *canonical*: within a length, codes are
+assigned in ``symbols`` order, numerically increasing, and the first
+code of length L+1 is twice the next code of length L.  A third-party
+decoder can therefore rebuild the exact codes from the two arrays alone
+(docs/bitstream.md gives the reconstruction algorithm).
+
+Tables are built per stream from the actual symbol frequencies
+(:func:`build_table`): plain Huffman over the frequencies, then the
+histogram rebalancing of ITU-T T.81 K.3 to cap code length at 16 while
+preserving the Kraft sum.
+
+Since container version 2, streams may instead reference **well-known
+shared tables** by id (:class:`TableRegistry`): the encoder skips both
+the per-stream table build and the ~56 embedded table bytes whenever a
+registered table codes the stream more cheaply (:func:`coded_bits` is
+the cost model).  Ids 1 and 2 ship the ITU-T T.81 Annex K luminance
+tables — the canonical "well-known" JPEG tables — and encoder and
+decoder share one registry (:data:`DEFAULT_TABLES`) so the choice needs
+no negotiation beyond the id byte in the header.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import heapq
+
+import numpy as np
+
+MAX_CODE_LEN = 16
+
+
+class InvalidTable(ValueError):
+    """An embedded table segment violates the canonical-code invariants."""
+
+
+@dataclasses.dataclass(frozen=True)
+class CanonicalTable:
+    """A canonical Huffman code: (counts per length, symbols in order).
+
+    Attributes:
+        counts: length-16 tuple; ``counts[i]`` codes have length i+1.
+        symbols: all coded symbols (ints in [0, 255]) in canonical order
+            — shortest codes first, ties in assignment order.
+    """
+    counts: tuple
+    symbols: tuple
+
+    def __post_init__(self):
+        if len(self.counts) != MAX_CODE_LEN:
+            raise InvalidTable(f"counts must have {MAX_CODE_LEN} entries")
+        if sum(self.counts) != len(self.symbols):
+            raise InvalidTable("counts sum != number of symbols")
+        if len(set(self.symbols)) != len(self.symbols):
+            raise InvalidTable("duplicate symbol in table")
+        if any(s < 0 or s > 255 for s in self.symbols):
+            raise InvalidTable("symbols must be bytes (0..255)")
+        kraft = sum(c * 2 ** (MAX_CODE_LEN - l)
+                    for l, c in enumerate(self.counts, start=1))
+        if kraft > 2 ** MAX_CODE_LEN:
+            raise InvalidTable("code lengths overfill the code space "
+                               "(Kraft sum > 1)")
+
+    def code_lengths(self) -> list:
+        """Per-symbol (code, length) pairs in canonical ``symbols`` order."""
+        out = []
+        code = 0
+        i = 0
+        for length, c in enumerate(self.counts, start=1):
+            for _ in range(c):
+                out.append((code, length))
+                code += 1
+                i += 1
+            code <<= 1
+        return out
+
+    def encoder_luts(self) -> tuple:
+        """(code_of, len_of): 256-entry arrays indexed by symbol.
+
+        ``len_of[s] == 0`` marks a symbol the table cannot encode.
+        """
+        code_of = np.zeros(256, dtype=np.int64)
+        len_of = np.zeros(256, dtype=np.int64)
+        for sym, (code, length) in zip(self.symbols, self.code_lengths()):
+            code_of[sym] = code
+            len_of[sym] = length
+        return code_of, len_of
+
+    def to_segment(self) -> bytes:
+        """Serialise as 16 count bytes + the symbol bytes (JPEG DHT shape)."""
+        return bytes(self.counts) + bytes(self.symbols)
+
+    @classmethod
+    def from_segment(cls, data: bytes, offset: int = 0) -> tuple:
+        """Parse a table segment; returns ``(table, next_offset)``.
+
+        Raises:
+            InvalidTable: malformed counts/symbols (also covers
+                truncation, reported with the missing byte count).
+        """
+        if len(data) < offset + MAX_CODE_LEN:
+            raise InvalidTable("table segment truncated (counts)")
+        counts = tuple(data[offset:offset + MAX_CODE_LEN])
+        nsym = sum(counts)
+        end = offset + MAX_CODE_LEN + nsym
+        if len(data) < end:
+            raise InvalidTable(
+                f"table segment truncated: {end - len(data)} symbol "
+                f"bytes missing")
+        symbols = tuple(data[offset + MAX_CODE_LEN:end])
+        return cls(counts=counts, symbols=symbols), end
+
+
+def _huffman_depths(freqs: dict) -> dict:
+    """Unlimited-depth Huffman code lengths for symbol -> frequency."""
+    if len(freqs) == 1:
+        return {next(iter(freqs)): 1}
+    heap = [(f, sym, None, None) for sym, f in freqs.items()]
+    heapq.heapify(heap)
+    n = 0
+    while len(heap) > 1:
+        a = heapq.heappop(heap)
+        b = heapq.heappop(heap)
+        n -= 1                       # unique, non-symbol tie-break key
+        heapq.heappush(heap, (a[0] + b[0], n, a, b))
+    depths: dict = {}
+    stack = [(heap[0], 0)]
+    while stack:
+        (f, key, left, right), d = stack.pop()
+        if left is None:
+            depths[key] = d
+        else:
+            stack.append((left, d + 1))
+            stack.append((right, d + 1))
+    return depths
+
+
+def _limit_lengths(hist: list) -> list:
+    """Cap a code-length histogram at MAX_CODE_LEN (ITU-T T.81 K.3).
+
+    ``hist[l]`` is the number of codes of length ``l`` (index 0 unused).
+    Each move retires two codes of the longest length into one code one
+    bit shorter plus two codes one bit longer than some shorter code —
+    the Kraft sum and the symbol count are both preserved.
+    """
+    max_len = len(hist) - 1
+    for i in range(max_len, MAX_CODE_LEN, -1):
+        while hist[i] > 0:
+            j = i - 2
+            while hist[j] == 0:
+                j -= 1
+            hist[i] -= 2
+            hist[i - 1] += 1
+            hist[j + 1] += 2
+            hist[j] -= 1
+    return hist[:MAX_CODE_LEN + 1] + [0] * (MAX_CODE_LEN + 1 - len(hist))
+
+
+def build_table(freqs: np.ndarray) -> CanonicalTable:
+    """Canonical length-limited table from symbol frequencies.
+
+    Args:
+        freqs: (<=256,) occurrence counts indexed by symbol; zero-count
+            symbols get no code.
+
+    Returns:
+        A :class:`CanonicalTable` assigning shorter codes to more
+        frequent symbols; ties break toward the smaller symbol value, so
+        the construction is deterministic.
+
+    Raises:
+        ValueError: all frequencies are zero (nothing to code).
+    """
+    freqs = np.asarray(freqs)
+    present = {int(s): int(freqs[s]) for s in np.nonzero(freqs)[0]}
+    if not present:
+        raise ValueError("cannot build a Huffman table from an empty "
+                         "symbol set")
+    depths = _huffman_depths(present)
+    max_d = max(depths.values())
+    hist = [0] * (max_d + 1)
+    for d in depths.values():
+        hist[d] += 1
+    hist = _limit_lengths(hist)
+    # assign limited lengths shortest-first to symbols ordered by
+    # (frequency desc, symbol asc)
+    order = sorted(present, key=lambda s: (-present[s], s))
+    counts = [0] * MAX_CODE_LEN
+    symbols = []
+    it = iter(order)
+    for length in range(1, MAX_CODE_LEN + 1):
+        for _ in range(hist[length]):
+            counts[length - 1] += 1
+            symbols.append(next(it))
+    return CanonicalTable(counts=tuple(counts), symbols=tuple(symbols))
+
+
+@functools.lru_cache(maxsize=512)
+def _table_from_histogram(freq_bytes: bytes) -> CanonicalTable:
+    return build_table(np.frombuffer(freq_bytes, dtype=np.int64))
+
+
+def build_table_memo(freqs: np.ndarray) -> CanonicalTable:
+    """Memoised :func:`build_table` keyed on the frequency histogram.
+
+    Streaming workloads repeat histogram shapes constantly (same source
+    imagery at the same quality produces the same symbol statistics), so
+    the heap construction + T.81 K.3 length limiting is cached on the
+    raw histogram bytes.  Equal histograms return the identical
+    :class:`CanonicalTable` object; distinct histograms never collide.
+    """
+    arr = np.ascontiguousarray(np.asarray(freqs, dtype=np.int64))
+    return _table_from_histogram(arr.tobytes())
+
+
+@functools.lru_cache(maxsize=64)
+def encoder_luts(table: CanonicalTable) -> tuple:
+    """Memoised :meth:`CanonicalTable.encoder_luts`.
+
+    Streaming encoders hit the same (shared or memoised per-stream)
+    tables constantly; caching on the frozen table makes the 256-entry
+    code/length arrays a one-time cost per table.  Callers must treat
+    the arrays as read-only.
+    """
+    return table.encoder_luts()
+
+
+def coded_bits(table: CanonicalTable, freqs: np.ndarray):
+    """Huffman bits this table spends coding a frequency histogram.
+
+    The cost model the v2 encoder uses to pick embedded vs shared
+    tables: amplitude bits are identical under any table, so only the
+    per-symbol code lengths matter.
+
+    Args:
+        table: candidate canonical table.
+        freqs: (<=256,) occurrence counts indexed by symbol.
+
+    Returns:
+        ``sum(freqs[s] * code_len(s))`` as an int, or ``None`` when the
+        histogram needs a symbol the table cannot code (the table is
+        unusable for this stream, not merely expensive).
+    """
+    freqs = np.asarray(freqs, dtype=np.int64)
+    _, len_of = encoder_luts(table)
+    len_of = len_of[:freqs.size]
+    if bool(((freqs > 0) & (len_of == 0)).any()):
+        return None
+    return int((freqs * len_of).sum())
+
+
+class TableRegistry:
+    """Well-known Huffman tables addressable by container table id.
+
+    Ids are one byte; id 0 always means "table embedded in this stream"
+    and is not registrable.  Encoder and decoder must share the same
+    registry contents (the container stores only the id), which is why
+    the default tables live in this module next to the code
+    construction rather than in the container.
+    """
+
+    def __init__(self):
+        self._tables: dict = {}
+
+    def register(self, table_id: int, table: CanonicalTable) -> None:
+        """Register ``table`` under ``table_id`` (1..255, no rebinding:
+        reassigning an id would silently corrupt every stream already
+        written against it)."""
+        if not 1 <= int(table_id) <= 255:
+            raise ValueError(f"shared table ids are 1..255, got "
+                             f"{table_id} (0 means embedded)")
+        if table_id in self._tables:
+            raise ValueError(f"table id {table_id} already registered")
+        if not isinstance(table, CanonicalTable):
+            raise TypeError("registry entries must be CanonicalTable")
+        self._tables[int(table_id)] = table
+
+    def known(self, table_id: int) -> bool:
+        """True when ``table_id`` resolves (id 0 is never 'known' —
+        embedded tables travel in the stream, not the registry)."""
+        return int(table_id) in self._tables
+
+    def get(self, table_id: int) -> CanonicalTable:
+        """The table registered under ``table_id``.
+
+        Raises:
+            KeyError: unknown id (callers translate this into a
+                bitstream error for decode paths).
+        """
+        return self._tables[int(table_id)]
+
+    def ids(self) -> tuple:
+        """All registered ids, ascending."""
+        return tuple(sorted(self._tables))
+
+
+# Well-known default tables (ITU-T T.81 Annex K, luminance).  The DC
+# table codes categories 0..11 and the AC table (run, size) symbols
+# with size <= 10 — streams whose levels need wider amplitudes fall
+# back to embedded tables automatically (coded_bits returns None).
+STANDARD_DC_LUMA_ID = 1
+STANDARD_AC_LUMA_ID = 2
+
+STANDARD_DC_LUMA = CanonicalTable(
+    counts=(0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
+    symbols=tuple(range(12)))
+
+STANDARD_AC_LUMA = CanonicalTable(
+    counts=(0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125),
+    symbols=(
+        0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12,
+        0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07,
+        0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08,
+        0x23, 0x42, 0xB1, 0xC1, 0x15, 0x52, 0xD1, 0xF0,
+        0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0A, 0x16,
+        0x17, 0x18, 0x19, 0x1A, 0x25, 0x26, 0x27, 0x28,
+        0x29, 0x2A, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+        0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49,
+        0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+        0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
+        0x6A, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79,
+        0x7A, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+        0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98,
+        0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7,
+        0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6,
+        0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3, 0xC4, 0xC5,
+        0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4,
+        0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA, 0xE1, 0xE2,
+        0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA,
+        0xF1, 0xF2, 0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8,
+        0xF9, 0xFA))
+
+DEFAULT_TABLES = TableRegistry()
+DEFAULT_TABLES.register(STANDARD_DC_LUMA_ID, STANDARD_DC_LUMA)
+DEFAULT_TABLES.register(STANDARD_AC_LUMA_ID, STANDARD_AC_LUMA)

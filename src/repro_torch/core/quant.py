@@ -56,3 +56,41 @@ def dequantize(qcoeffs: torch.Tensor, q: torch.Tensor,
                dtype=torch.float32) -> torch.Tensor:
     """(..., 8, 8) levels -> coefficients ``qcoeffs * q``."""
     return qcoeffs.to(dtype) * q.to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _zigzag_perm(n: int = 8) -> np.ndarray:
+    """Raster -> zig-zag permutation of block indices (length n*n)."""
+    idx = sorted(((i + j, i if (i + j) % 2 else j, i, j)
+                  for i in range(n) for j in range(n)))
+    return np.array([i * n + j for (_, _, i, j) in idx], dtype=np.int64)
+
+
+def zigzag(blocks: torch.Tensor) -> torch.Tensor:
+    """(..., n, n) square blocks -> (..., n*n) in zig-zag order (DC
+    first); the inverse is :func:`repro_torch.core.entropy.scan.
+    zigzag_unscan`."""
+    *lead, b, b2 = blocks.shape
+    perm = torch.from_numpy(_zigzag_perm(b)).to(blocks.device)
+    return blocks.reshape(*lead, b * b2)[..., perm]
+
+
+def estimate_bits(qcoeffs: torch.Tensor) -> torch.Tensor:
+    """JPEG-flavoured size *proxy* (bits) for quantised blocks, as the
+    reference computes it in float32: per nonzero coefficient its
+    magnitude-category bits plus 4 bits of Huffman overhead, plus 4 bits
+    of EOB per block.  Only ``CompressedBatch.nbytes_estimate`` uses it,
+    before the streams exist.
+
+    Args:
+        qcoeffs: (..., 8, 8) int quantised levels.
+
+    Returns:
+        Scalar float32 estimated bit count over all blocks.
+    """
+    mag = qcoeffs.abs().to(torch.float32)
+    nz = mag > 0
+    cat_bits = torch.where(nz, torch.ceil(torch.log2(mag + 1.0)), 0.0)
+    huff_bits = torch.where(nz, 4.0, 0.0)
+    per_block = (cat_bits + huff_bits).sum(dim=(-1, -2)) + 4.0
+    return per_block.sum()

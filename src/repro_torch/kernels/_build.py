@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "--fmad=false", "-Xptxas", "-v")
 
-KERNEL_SOURCES = ("dct8x8", "cordic_loeffler", "fused_codec")
+KERNEL_SOURCES = ("dct8x8", "cordic_loeffler", "fused_codec", "symbolize",
+                  "pack_bits", "unpack_bits")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,17 @@ The route depends only on (transform, mode): on the CPU the same route
 runs each kernel's plain PyTorch version.  The reference's pow2 batch
 padding and ``shard_map`` exist for XLA's compile cache and its device
 mesh; one GPU running eager PyTorch needs neither.
+
+``encode_batch`` / ``decode_batch`` extend the pipeline to entropy-coded
+``DCTZ`` bytes (:mod:`repro_torch.core.entropy`): per image, the
+symbolisation and packing run on the levels' device through the
+``symbolize`` and ``pack_bits`` kernels and the table choice and framing
+on the host; decode stages each payload with the ``unpack_bits`` kernel
+and resolves it on the host, then the levels go back through the
+decompress path.  Images are coded one after another: ``pipelined``
+and ``workers`` are accepted for the reference's signature and have no
+effect (a thread pool over images measured slower on one GPU, since
+every worker shares the default stream and ``resolve`` holds the GIL).
 """
 
 from __future__ import annotations
@@ -27,7 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch import as_tensor, resolve_device
-from repro_torch.core import codec, cordic, metrics
+from repro_torch.core import codec, cordic, metrics, quant
+from repro_torch.core.entropy import container, scan
 from repro_torch.kernels.common import edge_pad
 from repro_torch.kernels.fused_codec import fused_codec
 
@@ -51,6 +63,60 @@ class CompressedBatch:
     transform: str
     cordic_config: cordic.CordicConfig
     stacked: bool                  # input was a single (B, H, W) array
+    # (tables policy, streams): the bytes depend on the table policy only
+    _streams: tuple | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    def nbytes_estimate(self) -> float:
+        """Total compressed size of the batch, in bytes.
+
+        Measured — the summed ``len()`` of the streams — once
+        :meth:`to_bytes_list` has made them; before that the
+        :func:`repro_torch.core.quant.estimate_bits` proxy over the
+        (bucket-padded) levels, as the reference estimates it.
+        """
+        if self._streams is not None:
+            return float(sum(len(s) for s in self._streams[1]))
+        return sum(float(quant.estimate_bits(g.qcoeffs)) / 8.0
+                   for g in self.groups)
+
+    def to_bytes_list(self, pipelined: bool = True,
+                      workers: int | None = None,
+                      tables: str = "auto") -> list:
+        """Entropy-code every image: ``DCTZ`` streams in input order.
+
+        Each image's levels are cropped to its own block grid and coded
+        on their device (see
+        :func:`repro_torch.core.entropy.encode_zigzag_host`).  The
+        result is cached on the batch per table policy, so repeated calls
+        and :meth:`nbytes_estimate` afterwards are free.
+
+        Args:
+            pipelined: accepted for the reference's signature; no
+                effect (the images are coded one after another).
+            workers: accepted for the reference's signature; no effect.
+            tables: Huffman table policy per stream ("auto" /
+                "embedded" / "shared").
+
+        Raises:
+            ValueError: ``tables="shared"`` and an image needs a symbol
+                the shared tables cannot code, or a level too large for
+                a 15-bit amplitude.
+        """
+        if self._streams is not None and self._streams[0] == tables:
+            return list(self._streams[1])
+        jobs = [None] * self.n_images
+        for g in self.groups:
+            z = scan.zigzag_scan(g.qcoeffs)      # (n, gh, gw, 64)
+            for j, (idx, (h, w)) in enumerate(zip(g.indices,
+                                                  g.orig_shapes)):
+                gh, gw = (h + 7) // 8, (w + 7) // 8
+                jobs[idx] = (z[j, :gh, :gw].reshape(gh * gw, 64), (h, w))
+        streams = [container.encode_zigzag_host(
+            z, self.quality, self.transform, shape, tables=tables)
+            for z, shape in jobs]
+        self._streams = (tables, streams)
+        return list(streams)
 
 
 def _bucket_dim(d: int) -> int:
@@ -212,3 +278,88 @@ def roundtrip_batch(imgs, quality: int = 50,
     else:
         psnr = metrics.psnr(imgs, rec)
     return rec, psnr.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Entropy-coded byte path (real bytes per image)
+# ---------------------------------------------------------------------------
+
+def encode_batch(imgs, quality: int = 50,
+                 transform: codec.Transform = "exact",
+                 cordic_config: cordic.CordicConfig = cordic.PAPER_CONFIG,
+                 pipelined: bool = True, workers: int | None = None,
+                 tables: str = "auto", device=None) -> list:
+    """Compress a batch all the way to entropy-coded ``DCTZ`` streams.
+
+    :func:`compress_batch`, then :meth:`CompressedBatch.to_bytes_list`.
+
+    Args:
+        imgs: stacked (B, H, W) array or ragged list of (H, W) images.
+        quality: JPEG quality factor in [1, 100].
+        transform: encoder transform ("exact"/"cordic"/"loeffler").
+        cordic_config: CORDIC config for ``transform == "cordic"``.
+        pipelined: accepted for the reference's signature; no effect.
+        workers: accepted for the reference's signature; no effect.
+        tables: Huffman table policy ("auto"/"embedded"/"shared").
+        device: where to run; None means "cuda" (raises without a GPU).
+
+    Returns:
+        List of ``bytes``, one ``DCTZ`` stream per image in input order,
+        byte-identical to the reference's for the same levels and table
+        policy.
+    """
+    cb = compress_batch(imgs, quality, transform, cordic_config,
+                        device=device)
+    return cb.to_bytes_list(pipelined=pipelined, workers=workers,
+                            tables=tables)
+
+
+def decode_batch(blobs, mode: str = "standard", pipelined: bool = True,
+                 workers: int | None = None, device=None) -> list:
+    """Decode a list of ``DCTZ`` streams through the decompress path.
+
+    Each stream is parsed and entropy-decoded (payload staged on
+    ``device`` by the ``unpack_bits`` kernel, chain resolved on the
+    host); streams are then grouped by block grid, quality and decode
+    transform, and each group's levels go back to the device, are
+    un-zig-zagged and decompressed together.
+
+    Args:
+        blobs: iterable of ``DCTZ`` streams (``bytes``).
+        mode: "standard" (exact IDCT) or "matched" (the stored
+            transform, with the paper's CORDIC config).
+        pipelined: accepted for the reference's signature; no effect.
+        workers: accepted for the reference's signature; no effect.
+        device: where to run; None means "cuda" (raises without a GPU).
+
+    Returns:
+        List of (H, W) uint8 tensors on ``device`` in input order, each
+        bit-identical to ``decompress(CompressedImage.from_bytes(blob))``.
+
+    Raises:
+        repro_torch.core.entropy.BitstreamError: any malformed stream
+            (the whole call fails; no partial results).
+    """
+    dev = resolve_device(device)
+    blobs = list(blobs)
+    if not blobs:
+        raise ValueError("empty batch: nothing to decode")
+    decoded = [container.decode_zigzag_host(b, device=dev) for b in blobs]
+
+    buckets: dict = {}
+    for i, (_, hdr) in enumerate(decoded):
+        dec_transform = "exact" if mode == "standard" else hdr["transform"]
+        grid = ((hdr["height"] + 7) // 8, (hdr["width"] + 7) // 8)
+        buckets.setdefault((grid, hdr["quality"], dec_transform),
+                           []).append(i)
+
+    out = [None] * len(blobs)
+    for ((gh, gw), quality, dec_transform), members in buckets.items():
+        z = as_tensor(np.stack([decoded[i][0] for i in members]), dev)
+        q = scan.zigzag_unscan(z).reshape(-1, gh, gw, 8, 8)
+        rec = codec.decompress_batch_blocks(q, dec_transform, quality,
+                                            cordic.PAPER_CONFIG)
+        for j, i in enumerate(members):
+            hdr = decoded[i][1]
+            out[i] = rec[j, :hdr["height"], :hdr["width"]]
+    return out

@@ -192,3 +192,99 @@ def test_with_psnr_false_returns_none():
     rec, psnr = teng.roundtrip_batch(_stacked(n=1, h=8, w=8), 50, "exact",
                                      with_psnr=False, device="cpu")
     assert psnr is None and rec.shape == (1, 8, 8)
+
+
+# --- the byte path: encode_batch -> DCTZ -> decode_batch ---------------------
+
+def _bytes_case(layout):
+    return _stacked() if layout == "stacked" else _ragged()
+
+
+@pytest.mark.parametrize("layout", ["stacked", "ragged"])
+@pytest.mark.parametrize("quality", [1, 50, 100])
+@pytest.mark.parametrize("transform", TRANSFORMS)
+def test_encode_batch_bytes_match_reference(transform, quality, layout):
+    imgs = _bytes_case(layout)
+    cb = teng.compress_batch(imgs, quality, transform, device="cpu")
+    jcb = jeng.compress_batch(imgs, quality, transform)
+    for tables in ("auto", "embedded", "shared"):
+        want = jcb.to_bytes_list(tables=tables)
+        assert cb.to_bytes_list(tables=tables) == want, tables
+        assert teng.encode_batch(imgs, quality, transform, tables=tables,
+                                 device="cpu") == want, tables
+
+
+def test_encode_batch_does_not_depend_on_the_pool():
+    imgs = _ragged()
+    want = teng.encode_batch(imgs, 50, "cordic", pipelined=False,
+                             device="cpu")
+    for workers in (1, 2, 5):
+        assert teng.encode_batch(imgs, 50, "cordic", workers=workers,
+                                 device="cpu") == want
+
+
+def test_shared_tables_that_cannot_code_raise_the_reference_error():
+    # an AC level of category 12: the Annex K AC table codes sizes <= 10
+    imgs = _stacked(n=2, h=16, w=16)
+    jcb = jeng.compress_batch(imgs, 50, "cordic")
+    cb = teng.compress_batch(imgs, 50, "cordic", device="cpu")
+    jcb.groups[0].qcoeffs = jcb.groups[0].qcoeffs.at[1, 0, 1, 2, 3].set(
+        -3000)
+    cb.groups[0].qcoeffs[1, 0, 1, 2, 3] = -3000
+    with pytest.raises(ValueError) as want:
+        jcb.to_bytes_list(tables="shared")
+    with pytest.raises(ValueError) as got:
+        cb.to_bytes_list(tables="shared")
+    assert str(got.value) == str(want.value)
+    assert cb.to_bytes_list() == jcb.to_bytes_list()
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("transform", TRANSFORMS)
+def test_decode_batch_matches_reference(transform, mode):
+    imgs = _ragged()
+    blobs = jeng.encode_batch(imgs, 50, transform)
+    rec = teng.decode_batch(blobs, mode, device="cpu")
+    jrec = jeng.decode_batch(blobs, mode)
+    for r, jr in zip(rec, jrec):
+        if transform == "cordic" and mode == "matched":
+            np.testing.assert_array_equal(r.numpy(), np.asarray(jr))
+        else:
+            _assert_close("exact", r, jr, 0.0, 0.0)
+    # the entropy stage is lossless: bytes decode to what the levels do
+    cb = teng.compress_batch(imgs, 50, transform, device="cpu")
+    for r, d in zip(rec, teng.decompress_batch(cb, mode)):
+        assert torch.equal(r, d)
+    assert [r.shape for r in teng.decode_batch(blobs, mode,
+                                               pipelined=False,
+                                               device="cpu")] == \
+        [r.shape for r in rec]
+
+
+def test_nbytes_estimate_matches_reference_in_both_regimes():
+    imgs = _ragged()
+    cb = teng.compress_batch(imgs, 50, "cordic", device="cpu")
+    jcb = jeng.compress_batch(imgs, 50, "cordic")
+    assert cb.nbytes_estimate() == jcb.nbytes_estimate()
+    streams = cb.to_bytes_list()
+    jcb.to_bytes_list()
+    assert cb.nbytes_estimate() == jcb.nbytes_estimate() == \
+        sum(len(s) for s in streams)
+
+
+def test_bad_decode_batches_raise():
+    with pytest.raises(ValueError, match="empty batch"):
+        teng.decode_batch([], device="cpu")
+    blob = jeng.encode_batch(_stacked(n=1, h=16, w=16), 50, "exact")[0]
+    from repro_torch.core.entropy import BitstreamError
+    with pytest.raises(BitstreamError, match="CRC mismatch"):
+        teng.decode_batch([blob, blob[:-1] + b"\x00"], device="cpu")
+
+
+def test_byte_path_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    blob = jeng.encode_batch(_stacked(n=1, h=16, w=16), 50, "exact")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teng.encode_batch(_stacked(n=1, h=8, w=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teng.decode_batch(blob)

@@ -9,17 +9,23 @@ runs on a machine that has only PyTorch:
 
 Bounds: CORDIC paths bit-exact; exact-DCT coefficients within atol 2e-3,
 levels within +-1 on fewer than 1e-3 of coefficients, reconstructions
-within atol 3.
+within atol 3.  The byte path's kernels (symbolize, pack_bits,
+unpack_bits) are integer functions and must agree exactly; the card's
+streams must be byte-identical to the CPU path's.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import cordic, images
+from repro_torch.core import codec, cordic, images
+from repro_torch.core.entropy import BitstreamError, container, rle, scan
 from repro_torch.kernels import cordic_loeffler as t_cl
 from repro_torch.kernels import dct8x8 as t_dct
 from repro_torch.kernels import fused_codec as t_fused
+from repro_torch.kernels import pack_bits as t_pack
+from repro_torch.kernels import symbolize as t_sym
+from repro_torch.kernels import unpack_bits as t_unpack
 from repro_torch.serve import codec_engine as teng
 
 pytestmark = pytest.mark.gpu
@@ -103,3 +109,126 @@ def test_engine_on_the_card_matches_its_cpu_path(cuda, transform, mode):
             assert (r.cpu().int() - c.int()).abs().max().item() <= 3
     bound = 1e-3 if transform == "cordic" else 0.05
     np.testing.assert_allclose(psnr, ref_psnr, rtol=0, atol=bound)
+
+
+# --- the byte path -----------------------------------------------------------
+
+def _blocks(n, seed, density, max_mag=255):
+    rng = np.random.default_rng(seed)
+    dc_diff = rng.integers(-max_mag, max_mag + 1, n)
+    ac = rng.integers(-max_mag, max_mag + 1, (n, 63))
+    ac[rng.uniform(size=ac.shape) >= density] = 0
+    ac[:3, 62] = 0                       # blocks with three ZRLs
+    ac[:3, 61] = 9
+    ac[3, :] = 32767                     # a dense block of category 15
+    return (torch.from_numpy(dc_diff), torch.from_numpy(ac.astype(np.int32)))
+
+
+@pytest.mark.parametrize("n, density", [(1, 0.5), (37, 0.02), (5000, 0.15),
+                                        (777, 0.9)])
+def test_symbolize_matches_plain_version(cuda, n, density):
+    dc_diff, ac = _blocks(max(n, 4), n, density)
+    z = torch.cat([torch.zeros(ac.shape[0], 1, dtype=torch.int32), ac], 1)
+    # a strided AC view, as the encoder passes it
+    got = t_sym.symbolize(dc_diff.to(cuda), z.to(cuda)[:, 1:])
+    want = t_sym.symbolize_ref(dc_diff, ac)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("level", [1 << 15, -(2 ** 31)])
+def test_symbolize_range_guard_on_the_card(cuda, level):
+    dc_diff, ac = _blocks(8, 1, 0.2)
+    ac[5, 20] = level
+    with pytest.raises(rle.RangeError) as cpu:
+        t_sym.PreparedStream(dc_diff, ac)
+    with pytest.raises(rle.RangeError) as card:
+        t_sym.PreparedStream(dc_diff.to(cuda), ac.to(cuda))
+    assert str(card.value) == str(cpu.value)
+
+
+@pytest.mark.parametrize("m", [1, 1000, 300_000])
+def test_pack_bits_matches_plain_version(cuda, m):
+    rng = np.random.default_rng(m)
+    lengths = torch.from_numpy(rng.integers(0, 17, m).astype(np.int32))
+    codes = torch.from_numpy(rng.integers(0, 1 << 16, m).astype(np.int32))
+    starts = torch.cumsum(lengths, 0) - lengths
+    total = int(lengths.sum())
+    got = t_pack.pack_bits(codes.to(cuda), lengths.to(cuda),
+                           starts.to(cuda), total)
+    assert torch.equal(got.cpu(), t_pack.pack_bits_ref(codes, lengths,
+                                                       starts, total))
+
+
+def test_unpack_words_match_plain_version_at_every_tile(cuda):
+    q = codec.compress(images.cablecar_like(200, 264), 90, "cordic",
+                       device="cpu").qcoeffs
+    data = container.encode_qcoeffs(q, 90, "cordic", (200, 264),
+                                    tables="embedded")
+    hdr = container.read_header(data)
+    dc_t, ac_t, off = container._resolve_tables(data, hdr)
+    (dp, ds), (ap, as_) = (t_unpack.table_params(t) for t in (dc_t, ac_t))
+    args = [torch.from_numpy(a) for a in (
+        np.frombuffer(data[off:], np.uint8).copy(),
+        np.concatenate([dp, ap]), np.concatenate([ds, as_]))]
+    want = t_unpack.unpack_words_ref(*args)
+    for tile in (32, 64, 2048, t_unpack.ops.MAX_TILE_BITS // 32 * 32):
+        got = t_unpack.unpack_words(*(a.to(cuda) for a in args),
+                                    tile_bits=tile)
+        assert torch.equal(got.cpu(), want), tile
+
+
+@pytest.mark.parametrize("transform", ["exact", "cordic"])
+def test_byte_path_on_the_card_matches_its_cpu_path(cuda, transform):
+    imgs = [images.lena_like(72, 100), images.cablecar_like(40, 264, seed=2),
+            images.lena_like(64, 64, seed=3)]
+    counts = (t_sym.launches["encode"], t_pack.launches["encode"],
+              t_unpack.launches["decode"])
+    for tables in ("auto", "embedded", "shared"):
+        blobs = teng.encode_batch(imgs, 50, transform, tables=tables)
+        assert blobs == teng.encode_batch(imgs, 50, transform,
+                                          tables=tables, device="cpu")
+    assert (t_sym.launches["encode"], t_pack.launches["encode"]) == (
+        counts[0] + 9, counts[1] + 9)
+    for mode in ("standard", "matched"):
+        rec = teng.decode_batch(blobs, mode)
+        want = teng.decompress_batch(teng.compress_batch(imgs, 50,
+                                                         transform), mode)
+        for r, w in zip(rec, want):
+            assert r.device.type == "cuda" and torch.equal(r, w)
+    assert t_unpack.launches["decode"] == counts[2] + 6
+    c = codec.CompressedImage.from_bytes(blobs[1])
+    assert c.qcoeffs.device.type == "cuda" and c.nbytes == len(blobs[1])
+    assert c.to_bytes(tables="shared") == blobs[1]
+
+
+def test_malformed_streams_raise_on_the_card_as_on_the_cpu(cuda):
+    blob = teng.encode_batch([images.lena_like(48, 40)], 50, "exact",
+                             tables="embedded")[0]
+    payload_bit = (len(blob) - 6) * 8
+    flipped = bytearray(blob)
+    flipped[payload_bit // 8] ^= 0x40
+    import struct
+    import zlib
+    resealed = bytes(flipped)
+    crc = zlib.crc32(resealed[4:24] + resealed[28:]) & 0xFFFFFFFF
+    resealed = resealed[:24] + struct.pack("<I", crc) + resealed[28:]
+    for bad in (blob[:-3], resealed, blob + b"\x00"):
+        outcomes = []
+        for device in ("cpu", "cuda"):
+            try:
+                outcomes.append(container.decode_zigzag_host(
+                    bad, device=device)[0].tobytes())
+            except BitstreamError as e:
+                outcomes.append(str(e))
+        assert outcomes[0] == outcomes[1]
+
+
+def test_zigzag_and_dc_differential_on_the_card(cuda):
+    q = torch.randint(-40, 40, (5, 7, 8, 8), dtype=torch.int32)
+    z = scan.block_stream(q.to(cuda))
+    assert torch.equal(z.cpu(), scan.block_stream(q))
+    dc, ac = scan.dc_differential(z)
+    assert dc.dtype == torch.int64 and torch.equal(
+        scan.unblock_stream(scan.assemble_stream(scan.dc_integrate(dc), ac),
+                            5, 7).cpu(), q)

@@ -14,10 +14,15 @@ plain PyTorch version on the card and times both, drives
 byte path (``encode_batch`` -> ``DCTZ`` streams -> ``decode_batch``) --
 checks the PSNR the JAX reference reports (RESULTS.md: lena 512x512 at
 quality 50, 37.900 dB exact and 35.784 dB cordic), checks that the card's
-streams are byte-identical to the port's CPU path, runs the CPU column of
-the paper's CPU-versus-GPU comparison, counts the kernel launches of each
-path, and profiles where the time of each path goes.  Every phase prints
-JSON lines; any failed check or error exits non-zero.  The last line is
+streams are byte-identical to the port's CPU path, drives the training
+step's gradient compression (``repro_torch.optim.grad_compress.
+project_tree`` with error feedback, 5 steps) over SmolLM-360M's full
+gradient tree through the grad_dct kernel, compresses SmolLM-360M's
+full-width KV cache (``repro_torch.serve.kv_compress``), runs the CPU
+column of the paper's CPU-versus-GPU comparison, counts the kernel
+launches of each path, and profiles where the time of each path goes.
+Every phase prints JSON lines; any failed check or error exits non-zero.
+The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "...", "count": 1}}
 
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import cProfile
 import json
+import math
 import pathlib
 import pstats
 import struct
@@ -52,6 +58,27 @@ QUALITY = 50
 # RESULTS.md, Table 3 (lena 512x512, quality 50), from the JAX reference.
 REFERENCE_PSNR = {"exact": 37.900, "cordic": 35.784}
 PSNR_BOUND = {"exact": 0.05, "cordic": 1e-3}
+
+
+# SmolLM-360M (src/repro/configs/smollm_360m.py) at full width: each
+# parameter's gradient shape, all f32, as the reference's
+# models.registry.param_specs gives them, and its KV cache
+# (L, B, T, H_kv, D) at batch 8 and 2048 positions in bf16.
+SMOLLM_360M_GRADS = {
+    "embed/tokens": (49152, 960),
+    "blocks/attn_norm": (32, 960),
+    "blocks/attn/wq": (32, 960, 960),
+    "blocks/attn/wk": (32, 960, 320),
+    "blocks/attn/wv": (32, 960, 320),
+    "blocks/attn/wo": (32, 960, 960),
+    "blocks/mlp_norm": (32, 960),
+    "blocks/mlp/wi_gate": (32, 960, 2560),
+    "blocks/mlp/wi_up": (32, 960, 2560),
+    "blocks/mlp/wo": (32, 2560, 960),
+    "final_norm": (960,),
+}
+SMOLLM_360M_KV = (32, 8, 2048, 5, 64)
+GRAD_KEEP = 16
 
 
 class CheckFailed(Exception):
@@ -215,7 +242,12 @@ KERNELS = {
                   "src/repro/kernels/pack_bits/kernel.py:111"),
     "unpack_bits": ("src/repro_torch/kernels/csrc/unpack_bits.cu",
                     "src/repro/kernels/unpack_bits/kernel.py:179"),
+    "grad_dct": ("src/repro_torch/kernels/csrc/grad_dct.cu",
+                 "src/repro/kernels/grad_dct/kernel.py:61"),
 }
+# grad_dct's two directions replace two pallas_calls
+GRAD_DCT_REPLACES = {"encode": "src/repro/kernels/grad_dct/kernel.py:61",
+                     "decode": "src/repro/kernels/grad_dct/kernel.py:81"}
 
 
 def phase_kernels(torch, pixels, label):
@@ -392,6 +424,262 @@ def phase_byte_kernels(torch, np, eng, imgs, label):
         emit(phase="kernel", **row)
         rows.append(row)
     return rows
+
+
+# Least work of grad_dct per 64-sample row at ``keep`` coefficients
+# (bytes, fp32 operations): both directions read or write the 256 B of
+# f32 samples and the keep + 4 B of wire once; the truncated product is
+# 64 x keep multiply-adds (2 operations each); encode adds an absolute
+# value, a max, a division and a round per kept coefficient, decode a
+# dequantising product.
+def grad_work(rows: int, keep: int, variant: str):
+    ops = 2 * 64 * keep + (4 * keep if variant == "encode" else keep)
+    return rows * (256 + keep + 4), rows * ops
+
+
+def grad_scale_slack(torch, g, keep):
+    """The f32 rounding bound on two computations of a row's largest kept
+    coefficient (64-term sums in any order), carried to its scale:
+    2 * 64 * 2^-24 * max_k sum_j |g_j C_kj| / 127."""
+    from repro_torch.core import dct
+    c = dct.dct_matrix(64, device=g.device)[:keep].abs()
+    return 2 * 64 * 2.0 ** -24 * (g.abs() @ c.T).amax(1, keepdim=True) / 127
+
+
+def phase_grad_kernels(torch, rows_n, label):
+    """grad_dct encode and decode at keep=16 on (rows_n, 64) seeded
+    gradient rows on the card, against their plain versions: codes within
+    +-1 on at most 1 in 10^4 (the kernel sums in another order than the
+    plain matmul), scales within rtol 1e-6 or the f32 rounding bound,
+    decode from the same codes within atol 1e-5; kernel ms, plain ms,
+    bound ms, and the truncated product alone (torch.matmul) as
+    matmul_ms, for context."""
+    from repro_torch.core import dct
+    from repro_torch.kernels import grad_dct as gd
+
+    keep = GRAD_KEEP
+    gen = torch.Generator(device="cuda").manual_seed(rows_n)
+    g = torch.randn((rows_n, 64), generator=gen, device="cuda")
+    br = gd.default_block_rows(rows_n)
+    q, s = gd.ops._launch_encode(g, keep, br)
+    q_ref, s_ref = gd.grad_dct_encode_ref(g, keep)
+    diff = (q.int() - q_ref.int()).abs()
+    flips = int((diff > 0).sum())
+    code_err = int(diff.max())
+    slack = grad_scale_slack(torch, g, keep)
+    scale_ok = bool(((s - s_ref).abs() <= 1e-6 * s_ref + slack).all())
+    scale_rel = float(((s - s_ref).abs() / s_ref).max())
+    check(code_err <= 1 and flips <= max(1, int(1e-4 * q.numel()))
+          and scale_ok, f"grad_dct[encode] {label}: codes off by "
+          f"{code_err} on {flips} of {q.numel()}, scales within bound: "
+          f"{scale_ok}")
+    dec = gd.ops._launch_decode(q, s, br)
+    dec_err = float((dec - gd.grad_dct_decode_ref(q, s)).abs().max())
+    check(dec_err <= 1e-5, f"grad_dct[decode] {label}: off by {dec_err}")
+
+    c = dct.dct_matrix(64, device=g.device)
+    c_t = c[:keep].T.contiguous()
+    c_k = c[:keep].contiguous()
+    kept = q.float() * s
+    fast, slow = (20, 5) if rows_n <= 1_000_000 else (10, 3)
+    out = []
+    for variant, max_err, tolerance, run, plain, product in (
+            ("encode", code_err, "codes +-1 on <= 1e-4, scales rtol 1e-6 "
+             "or the f32 rounding bound",
+             lambda: gd.ops._launch_encode(g, keep, br),
+             lambda: gd.grad_dct_encode_ref(g, keep),
+             lambda: torch.matmul(g, c_t)),
+            ("decode", dec_err, "atol 1e-5",
+             lambda: gd.ops._launch_decode(q, s, br),
+             lambda: gd.grad_dct_decode_ref(q, s),
+             lambda: torch.matmul(kept, c_k))):
+        nbytes, ops = grad_work(rows_n, keep, variant)
+        b_ms, b_by = bound(nbytes, ops)
+        row = dict(name=f"grad_dct[{variant}] {label}", kernel="grad_dct",
+                   variant=variant, shape=label, route="cuda",
+                   source=KERNELS["grad_dct"][0],
+                   replaces=GRAD_DCT_REPLACES[variant], max_abs_err=max_err,
+                   tolerance=tolerance, ms=time_ms(torch, run, fast),
+                   plain_ms=time_ms(torch, plain, slow), bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None,
+                   matmul_ms=time_ms(torch, product, fast), bytes=nbytes,
+                   ops=ops, rows=rows_n, keep=keep, block_rows=br)
+        if variant == "encode":
+            row.update(codes_differing=flips, codes=q.numel(),
+                       scale_max_rel_diff=scale_rel)
+        emit(phase="kernel", **row)
+        out.append(row)
+    return out
+
+
+def hold_projection(torch, gd, proj, corrected, keep, label):
+    """One leaf's projection from the card against the plain roundtrip
+    of the same corrected gradient on the card: the sub-row tail exact;
+    rows within atol 1e-5, except that a code may flip by +-1 (the
+    kernel sums in another order than the plain matmul) on at most 1 in
+    10^4 codes, and a row with such a code moves by at most one
+    quantisation step (its scale).  Returns the rows off by more than
+    1e-5."""
+    flat = proj.reshape(-1)
+    corrected = corrected.reshape(-1)
+    r = flat.numel() // 64
+    check(torch.equal(flat[r * 64:], corrected[r * 64:]),
+          f"{label}: tail not exact")
+    q, s = gd.grad_dct_encode_ref(corrected[:r * 64].view(r, 64), keep)
+    row_err = (flat[:r * 64].view(r, 64).float()
+               - gd.grad_dct_decode_ref(q, s)).abs().amax(1)
+    off = row_err > 1e-5
+    n_off = int(off.sum())
+    check(n_off <= math.ceil(1e-4 * r * keep) and bool(
+        (row_err[off] <= s[off, 0] * (1 + 1e-6)).all()),
+        f"{label}: {n_off} of {r} rows off the plain roundtrip, worst "
+        f"{float(row_err.max())}")
+    return n_off
+
+
+def phase_gradients(torch, gd, gc, steps=5):
+    """The training step's compression stage over SmolLM-360M's full
+    gradient tree on the card: ``project_tree`` with error feedback for
+    ``steps`` steps on seeded gradients.  Checks 10 encode and 10 decode
+    launches per step, every compressed leaf's projection against the
+    plain roundtrip on the first and the last step
+    (``hold_projection``), ``new_ef == corrected - proj`` exactly on one
+    leaf, ``final_norm`` passed through untouched, finite projections;
+    reports ms per step, peak memory and the wire ratio of the
+    compressed leaves (worked out from their shapes, so that no encode
+    outside the steps is launched)."""
+    cfg = gc.GradCompressConfig(enabled=True, keep=GRAD_KEEP)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw():
+        return {p: torch.randn(shape, generator=gen, device="cuda")
+                for p, shape in SMOLLM_360M_GRADS.items()}
+
+    grads = draw()
+    ef = gc.init_error_feedback(grads)
+    small = [p for p, g in grads.items() if g.numel() < cfg.min_size]
+    n_big = len(grads) - len(small)
+    floats = sum(g.numel() for g in grads.values()
+                 if g.numel() >= cfg.min_size)
+    check(n_big == 10, f"{n_big} compressed leaves, want 10")
+    probe = "blocks/mlp/wo"
+    step_ms, flipped, peak = [], {}, 0
+    for step in range(steps):
+        if step:
+            grads = draw()
+        before = dict(gd.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, (new_g, new_ef) = wall_ms(torch, lambda: gc.project_tree(
+            grads, ef, cfg))
+        step_ms.append(ms)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        grew = {k: gd.launches[k] - before[k] for k in before}
+        check(grew == {"encode": n_big, "decode": n_big},
+              f"project_tree step {step}: launches grew by {grew}")
+        for p in small:
+            check(new_g[p] is grads[p] and new_ef[p] is ef[p],
+                  f"{p} did not pass through untouched")
+        if step in (0, steps - 1):
+            for p in grads:
+                if p not in small:
+                    flipped[(step, p)] = hold_projection(
+                        torch, gd, new_g[p], grads[p] + ef[p], cfg.keep,
+                        f"step {step} {p}")
+        corrected = grads[probe] + ef[probe]
+        check(torch.equal(new_ef[probe], corrected - new_g[probe]),
+              f"step {step}: new_ef != corrected - proj on {probe}")
+        check(all(bool(torch.isfinite(new_g[p]).all()) and
+                  new_g[p].shape == grads[p].shape for p in grads),
+              f"step {step}: projection not finite or misshapen")
+        rel = float(torch.linalg.norm(corrected - new_g[probe])
+                    / torch.linalg.norm(corrected))
+        del corrected
+        ef = new_ef
+    raw = wire = 0
+    for p, g in grads.items():
+        if g.numel() >= cfg.min_size:
+            r, tail = divmod(g.numel(), 64)
+            raw += 4 * g.numel()
+            # CompressedGrad.wire_bytes(): codes, f32 scales, f32 tail
+            wire += r * cfg.keep + 4 * r + 4 * tail
+    # the least a projection step must move: read g and ef, write the
+    # projection and the new ef, 16 B per compressed float
+    b_ms, _ = bound(16 * floats, 0)
+    row = dict(phase="gradients", model="smollm-360m", keep=cfg.keep,
+               leaves=sorted(grads), compressed_leaves=n_big,
+               exact_leaves=small, floats=floats, rows=floats // 64,
+               steps=steps, step_ms=step_ms,
+               ms_per_step_median=sorted(step_ms)[steps // 2],
+               bound_ms_per_step=b_ms, peak_memory_bytes=peak,
+               wire_ratio=raw / wire, raw_bytes=raw, wire_bytes=wire,
+               ef_checked_on=probe, last_step_relative_residual=rel,
+               rows_off_plain={f"{st} {p}": n
+                               for (st, p), n in flipped.items()},
+               launches_per_step={"encode": n_big, "decode": n_big})
+    emit(**row)
+    check(abs(raw / wire - 256 / (cfg.keep + 4)) < 1e-9,
+          f"wire ratio {raw / wire}")
+    return row
+
+
+def phase_kv(torch, kv, keep=16):
+    """compress_cache -> reconstruct_cache on SmolLM-360M's full-width KV
+    cache (bf16), with a whole and a ragged prefix: synthetic keys and
+    values that vary smoothly along T, made from a seed on the card.
+    Checks shapes, finiteness, the raw tail kept exact, relative error
+    < 0.05, and the card's codes against the CPU's on a small slice
+    (+-1 on at most 1 in 10^4)."""
+    l, b, t, h, d = SMOLLM_360M_KV
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def smooth():
+        col = (l, b, 1, h, d)
+        omega = 0.005 + 0.045 * torch.rand(col, generator=gen, device=dev)
+        phase = 2 * torch.pi * torch.rand(col, generator=gen, device=dev)
+        amp = torch.randn(col, generator=gen, device=dev)
+        pos = torch.arange(t, device=dev, dtype=torch.float32).view(
+            1, 1, t, 1, 1)
+        x = amp * torch.sin(omega * pos + phase)
+        x += 0.01 * torch.randn((l, b, t, h, d), generator=gen, device=dev)
+        return x.to(torch.bfloat16)
+
+    cache = {"k": smooth(), "v": smooth()}
+    raw = sum(x.numel() * x.element_size() for x in cache.values())
+    small = cache["k"][:2, :1].contiguous()
+    codes, scales = kv.compress_tensor(small, keep)
+    want, _ = kv.compress_tensor(small.cpu(), keep)
+    diff = (codes.cpu().int() - want.int()).abs()
+    check(int(diff.max()) <= 1 and int((diff > 0).sum()) <= max(
+        1, int(1e-4 * diff.numel())), "kv codes: card differs from CPU")
+    kv.reconstruct_cache(*kv.compress_cache(cache, keep, t))     # warm
+    for prefix in (t, t - 48):
+        t_c = prefix // 64 * 64
+        c_ms, (ckv, tails) = wall_ms(torch, lambda: kv.compress_cache(
+            cache, keep, prefix))
+        r_ms, rec = wall_ms(torch, lambda: kv.reconstruct_cache(ckv, tails))
+        errs = {}
+        for p, x in cache.items():
+            check(tuple(ckv.codes[p].shape) == (l, b, h, d, t_c // 64, keep)
+                  and ckv.codes[p].dtype == torch.int8,
+                  f"kv {p} codes {tuple(ckv.codes[p].shape)}")
+            check(rec[p].shape == x.shape and rec[p].dtype == x.dtype
+                  and bool(torch.isfinite(rec[p]).all()),
+                  f"kv {p} prefix {prefix}: reconstruction misshapen")
+            check(torch.equal(rec[p][:, :, t_c:], x[:, :, t_c:]),
+                  f"kv {p} prefix {prefix}: raw tail changed")
+            errs[p] = float(torch.linalg.norm(rec[p].float() - x.float())
+                            / torch.linalg.norm(x.float()))
+            check(errs[p] < 0.05, f"kv {p} prefix {prefix}: relative "
+                  f"error {errs[p]}")
+        wire = kv.wire_bytes(ckv, tails)
+        emit(phase="kv", model="smollm-360m", shape=list(SMOLLM_360M_KV),
+             dtype="bfloat16", keep=keep, prefix_len=prefix,
+             t_compressed=t_c, compress_ms=c_ms, reconstruct_ms=r_ms,
+             raw_bytes=raw, wire_bytes=wire, raw_over_dct=raw / wire,
+             relative_error=errs, small_slice_codes_differing=int(
+                 (diff > 0).sum()))
 
 
 def reset_launches(modules):
@@ -686,10 +974,13 @@ def main() -> int:
     from repro_torch.kernels import cordic_loeffler as cl
     from repro_torch.kernels import dct8x8 as d8
     from repro_torch.kernels import fused_codec as fc
+    from repro_torch.kernels import grad_dct as gd
     from repro_torch.kernels import pack_bits as pb
     from repro_torch.kernels import symbolize as sy
     from repro_torch.kernels import unpack_bits as ub
+    from repro_torch.optim import grad_compress as gc
     from repro_torch.serve import codec_engine as eng
+    from repro_torch.serve import kv_compress as kv
 
     t_start = time.perf_counter()
     phase_device()
@@ -703,16 +994,21 @@ def main() -> int:
                           "64x512x512")
     rows += phase_byte_kernels(torch, np, eng, big[None], "3072x3072")
     rows += phase_byte_kernels(torch, np, eng, batch, "64x512x512")
+    tree_rows = sum(math.prod(s) // 64 for s in SMOLLM_360M_GRADS.values()
+                    if math.prod(s) >= gc.GradCompressConfig().min_size)
+    rows += phase_grad_kernels(torch, tree_rows, f"{tree_rows}x64")
+    rows += phase_grad_kernels(torch, 65_536, "65536x64")
 
     # each path is driven with every count at 0 just before it and read
     # just after; its own kernels must have been launched in that run
-    modules = (fc, d8, cl, sy, pb, ub)
+    modules = (fc, d8, cl, sy, pb, ub, gd)
     launches = {}
     for path, run, own in (
             ("pixels", lambda: phase_main_path(torch, np, eng, singles,
                                                batch, modules), (fc, d8, cl)),
             ("bytes", lambda: phase_byte_path(torch, np, eng, singles,
-                                              batch), (sy, pb, ub))):
+                                              batch), (sy, pb, ub)),
+            ("gradients", lambda: phase_gradients(torch, gd, gc), (gd,))):
         reset_launches(modules)
         out = run()
         torch.cuda.synchronize()
@@ -726,15 +1022,19 @@ def main() -> int:
         if path == "pixels":
             gpu_psnr = out
 
+    phase_kv(torch, kv)
     phase_cpu_column(torch, eng, singles, gpu_psnr)
     phase_profile(torch, eng, batch, singles)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
+            "library_ms", "shape", "bytes")
     for row in rows:
         row["launches"] = launches[f"{row['kernel']}[{row['variant']}]"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **({"matmul_ms": r["matmul_ms"]} if "matmul_ms" in r else {})}
+        for r in rows]}))
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

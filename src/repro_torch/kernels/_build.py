@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-Xptxas", "-v")
 
 KERNEL_SOURCES = ("dct8x8", "cordic_loeffler", "fused_codec", "symbolize",
-                  "pack_bits", "unpack_bits")
+                  "pack_bits", "unpack_bits", "grad_dct")
 
 
 @dataclasses.dataclass(frozen=True)

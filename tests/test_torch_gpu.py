@@ -11,21 +11,27 @@ Bounds: CORDIC paths bit-exact; exact-DCT coefficients within atol 2e-3,
 levels within +-1 on fewer than 1e-3 of coefficients, reconstructions
 within atol 3.  The byte path's kernels (symbolize, pack_bits,
 unpack_bits) are integer functions and must agree exactly; the card's
-streams must be byte-identical to the CPU path's.
+streams must be byte-identical to the CPU path's.  grad_dct: the kernel
+sums a coefficient's 64 products in another order than the plain
+version's matmul, so codes may differ by +-1 on at most 1 in 10^4 of
+them, and scales by rtol 1e-6 or the f32 rounding bound of the two sums;
+decode from the same codes within atol 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import codec, cordic, images
+from repro_torch.core import codec, cordic, dct, images
 from repro_torch.core.entropy import BitstreamError, container, rle, scan
 from repro_torch.kernels import cordic_loeffler as t_cl
 from repro_torch.kernels import dct8x8 as t_dct
 from repro_torch.kernels import fused_codec as t_fused
+from repro_torch.kernels import grad_dct as t_gd
 from repro_torch.kernels import pack_bits as t_pack
 from repro_torch.kernels import symbolize as t_sym
 from repro_torch.kernels import unpack_bits as t_unpack
+from repro_torch.optim import grad_compress as t_gc
 from repro_torch.serve import codec_engine as teng
 
 pytestmark = pytest.mark.gpu
@@ -232,3 +238,84 @@ def test_zigzag_and_dc_differential_on_the_card(cuda):
     assert dc.dtype == torch.int64 and torch.equal(
         scan.unblock_stream(scan.assemble_stream(scan.dc_integrate(dc), ac),
                             5, 7).cpu(), q)
+
+
+# --- grad_dct ----------------------------------------------------------------
+
+def _assert_grad_codes_close(body, q, s, q_ref, s_ref):
+    """Kernel codes and scales of (R, 64) rows ``body`` against the plain
+    version's (module docstring)."""
+    diff = (q.long() - q_ref.long()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).sum().item() <= max(1, int(1e-4 * diff.numel()))
+    c = dct.dct_matrix(64, device=body.device)
+    sums = body.abs() @ c[:q.shape[1]].abs().T
+    slack = 2 * 64 * 2.0 ** -24 * sums.amax(1, keepdim=True) / 127
+    assert ((s - s_ref).abs() <= 1e-6 * s_ref + slack).all()
+
+
+@pytest.mark.parametrize("n, block_rows", [
+    (1, None), (64 * 3 + 5, 64), (4096 * 64 + 17, 256),
+    (4096 * 64 + 17, 1024), (1_000_003, None), (1_000_003, 100)])
+def test_grad_dct_matches_plain_version(cuda, n, block_rows):
+    g = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(
+        np.float32)).to(cuda)
+    before = dict(t_gd.launches)
+    cg = t_gd.encode(g, 16, block_rows=block_rows)
+    r = n // 64
+    assert tuple(cg.q.shape) == (r, 16) and tuple(cg.scale.shape) == (r, 1)
+    assert torch.equal(cg.tail, g[r * 64:])
+    dec = t_gd.decode(cg, block_rows=block_rows)
+    assert dec.shape == g.shape and torch.equal(dec[r * 64:], g[r * 64:])
+    launched = 1 if r else 0
+    assert t_gd.launches == {"encode": before["encode"] + launched,
+                             "decode": before["decode"] + launched}
+    if r:
+        body = g[:r * 64].reshape(r, 64)
+        q_ref, s_ref = t_gd.grad_dct_encode_ref(body, 16)
+        _assert_grad_codes_close(body, cg.q, cg.scale, q_ref, s_ref)
+        torch.testing.assert_close(
+            dec[:r * 64].reshape(r, 64),
+            t_gd.grad_dct_decode_ref(cg.q, cg.scale), rtol=0, atol=1e-5)
+        # no output depends on the tile
+        other = t_gd.encode(g, 16, block_rows=64)
+        assert torch.equal(other.q, cg.q) and torch.equal(other.scale,
+                                                          cg.scale)
+        assert torch.equal(t_gd.decode(cg, block_rows=1000), dec)
+
+
+@pytest.mark.parametrize("keep", [1, 8, 33, 64])
+def test_grad_dct_every_keep(cuda, keep):
+    g = torch.from_numpy(np.random.default_rng(keep).standard_normal(
+        (3000, 64)).astype(np.float32)).to(cuda)
+    cg = t_gd.encode(g.reshape(-1), keep)
+    q_ref, s_ref = t_gd.grad_dct_encode_ref(g, keep)
+    _assert_grad_codes_close(g, cg.q, cg.scale, q_ref, s_ref)
+    torch.testing.assert_close(t_gd.decode(cg).reshape(-1, 64),
+                               t_gd.grad_dct_decode_ref(cg.q, cg.scale),
+                               rtol=0, atol=1e-5)
+
+
+def test_project_tree_step_on_the_card(cuda):
+    rng = np.random.default_rng(0)
+    tree = {"w": rng.standard_normal((96, 70)).astype(np.float32),
+            "e": rng.standard_normal((5000,)).astype(np.float32),
+            "h": rng.standard_normal((80, 64)).astype(np.float32),
+            "norm": rng.standard_normal((64,)).astype(np.float32)}
+    grads = t_gc.from_numpy_tree(tree)
+    grads["h"] = grads["h"].to(torch.bfloat16)
+    ef = {p: torch.from_numpy(rng.standard_normal(g.shape).astype(
+        np.float32)).to(cuda) for p, g in grads.items()}
+    cfg = t_gc.GradCompressConfig(enabled=True, keep=16)
+    before = dict(t_gd.launches)
+    new_g, new_ef = t_gc.project_tree(grads, ef, cfg)
+    assert t_gd.launches == {"encode": before["encode"] + 3,
+                             "decode": before["decode"] + 3}
+    assert new_g["norm"] is grads["norm"] and new_ef["norm"] is ef["norm"]
+    for p in ("w", "e", "h"):
+        corrected = grads[p].float() + ef[p]
+        proj = t_gc.project_leaf(corrected, 16)
+        assert new_g[p].device.type == "cuda"
+        assert new_g[p].dtype == grads[p].dtype
+        assert torch.equal(new_ef[p], corrected - proj)
+        assert torch.equal(new_g[p], proj.to(grads[p].dtype))
